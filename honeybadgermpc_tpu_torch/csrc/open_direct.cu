@@ -1,0 +1,139 @@
+// open_direct: the whole n-party batch open as one kernel.
+//
+// Replaces the TPU kernel honeybadgermpc_tpu/ops/fused_open_direct.py::
+// _direct_kernel (called through _direct_call). Same function: for every
+// opened share b (a "lane"), contract the first k parties' packed shares
+// with the Lagrange band; the lam0 column is the secret, the lam_z columns
+// predict the shares of parties k..n-1, which are XOR-compared with the
+// received ones; mismatches are counted per offending source party.
+//
+//   packed  uint32 [PL, n, B]   shares, at-rest packed format
+//   band    int4   [nv+1, k, 2, 32]  column, k-step (= party), m-tile,
+//                               thread: the A fragments of mma.m16n8k32 in
+//                               the order the threads load them
+//                               (ops/fused_open.py::_kernel_band)
+//   sec     uint32 [PL, B]      opened secrets (written directly, ragged
+//                               edge masked; no lane-major staging)
+//   errs    int32  [nv]         zeroed by the caller; += mismatches
+//
+// What bounds it on an H100: operations. Per opened share the int8 dot is
+// (n-k+1) columns x 32 diagonals x 32k digits (0.97 M MAC at n=64, k=22)
+// against 32n + 32 bytes of traffic, far above the card's int8 ridge; the
+// fold/REDC epilogue (CUDA cores, about 450 instructions per lane and
+// column) comes on top of the dot.
+//
+// Design. A block owns TL lanes and WG column slots (TL*WG threads; a warp
+// is 32 lanes of one slot). It builds its lanes' balanced digit planes once
+// (8k words per lane, carry chain per party) and keeps them in shared
+// memory for all columns. After one barrier every warp walks its slot's
+// columns on its own: it reads the column's band fragments straight from
+// device memory (about 1 MB in all, shared by every block: L1/L2 hits),
+// runs the dot on the tensor cores (mma.sync.m16n8k32.s8, eight
+// accumulator tiles), transposes its tiles through a per-warp staging area
+// so that every thread holds one lane's 32 diagonals, and runs the
+// fold/REDC epilogue in registers. With no barrier in the column loop the
+// warps drift apart, so one warp's epilogue overlaps another's dot.
+// The TPU kernel carried its mismatch accumulator across a sequential grid;
+// here blocks run in no order, so counts are reduced per block in shared
+// memory (warp ballot -> shared atomicAdd) and added to the global vector
+// with one atomicAdd per column and block. Integer adds: order-free.
+// k <= 128 keeps every int32 diagonal below 2^26 (the wrapper asserts it).
+#include "field_core.cuh"
+
+namespace hb {
+
+__global__ void open_direct_kernel(const uint32_t* __restrict__ packed,
+                                   const int4* __restrict__ band,
+                                   uint32_t* __restrict__ sec,
+                                   int* __restrict__ errs, int n, int k,
+                                   long long B, int tl, FoldConst fc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int wg = blockDim.x / tl;
+  const int tid = threadIdx.x;
+  const int laneid = tid & 31;
+  const int slot = tid / tl;               // column slot of this warp
+  const int lane = tid - slot * tl;        // lane within the block
+  const long long b = static_cast<long long>(blockIdx.x) * tl + lane;
+  const bool valid = b < B;
+  const int nv = n - k;
+  const int stride = tl + 8;
+  const BandSmem s = band_smem_carve(smem, k, tl, wg);
+  int* s_err = s.tail;                     // nv ints
+  int* s_d = s.stage + (tid >> 5) * 32 * D_STRIDE;
+
+  for (int i = tid; i < nv; i += blockDim.x) s_err[i] = 0;
+
+  // digit planes of the first k parties' shares; slot j takes parties
+  // j, j+wg, ... of its lane
+  for (int i = slot; i < k; i += wg) {
+    uint32_t carry = 0;
+#pragma unroll
+    for (int w = 0; w < PL; ++w) {
+      const uint32_t word =
+          valid ? packed[(static_cast<size_t>(w) * n + i) * B + b] : 0u;
+      s.planes[(i * PL + w) * stride + lane] = balance_word(word, carry);
+    }
+  }
+
+  __syncthreads();                         // planes and counters are ready
+
+  // no block barrier below: each warp walks its slot's columns on its own
+  for (int col = slot; col <= nv; col += wg) {
+    // received share of party k+col, in flight while the dot runs
+    uint32_t recv[PL];
+#pragma unroll
+    for (int w = 0; w < PL; ++w)
+      recv[w] = (valid && col < nv)
+                    ? packed[(static_cast<size_t>(w) * n + (k + col)) * B + b]
+                    : 0u;
+
+    int acc[2][4][4];
+    band_mma_column(acc, s.planes, stride, lane - laneid,
+                    band + static_cast<size_t>(col) * k * 64, k, laneid);
+    int32_t ds[NBAL];
+    uint32_t limbs[L], words[PL];
+    band_mma_diagonals(acc, s_d, laneid, ds);
+    fold_reduce_bal(ds, fc, limbs);
+    pack16(limbs, words);
+
+    if (col < nv) {                        // predicted share of party k+col
+      uint32_t diff = 0;
+      if (valid) {
+#pragma unroll
+        for (int w = 0; w < PL; ++w) diff |= words[w] ^ recv[w];
+      }
+      const unsigned bad = __ballot_sync(0xFFFFFFFFu, diff != 0u);
+      if (laneid == 0 && bad) atomicAdd(&s_err[col], __popc(bad));
+    } else if (valid) {                    // lam0 column: the secrets
+#pragma unroll
+      for (int w = 0; w < PL; ++w)
+        sec[static_cast<size_t>(w) * B + b] = words[w];
+    }
+  }
+
+  __syncthreads();
+  for (int i = tid; i < nv; i += blockDim.x)
+    if (s_err[i]) atomicAdd(&errs[i], s_err[i]);
+}
+
+}  // namespace hb
+
+extern "C" int hb_open_direct(const void* packed, const void* band, void* sec,
+                              void* errs, int n, int k, long long B, int tl,
+                              int wg, const uint32_t* init, int bias,
+                              void* stream) {
+  hb::FoldConst fc;
+  for (int j = 0; j < hb::NL; ++j) fc.init[j] = init[j];
+  fc.bias = bias;
+  const size_t smem = hb::band_smem_bytes(k, tl, wg, n - k);
+  cudaError_t err = cudaFuncSetAttribute(
+      hb::open_direct_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned grid = static_cast<unsigned>((B + tl - 1) / tl);
+  hb::open_direct_kernel<<<grid, tl * wg, smem,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(packed), static_cast<const int4*>(band),
+      static_cast<uint32_t*>(sec), static_cast<int*>(errs), n, k, B, tl, fc);
+  return static_cast<int>(cudaGetLastError());
+}

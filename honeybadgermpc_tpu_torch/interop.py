@@ -1,0 +1,54 @@
+"""State carried across: tensors and files shared with the reference.
+
+The reference keeps limbs and packed words as ``uint32`` arrays; the port
+keeps the same bits in ``int32`` tensors (see the package docstring). These
+helpers convert at that boundary without touching a bit, so limb tensors,
+packed share tensors and saved preprocessing pools move between the two
+packages unchanged. (The pool files themselves are read and written by
+``runtime/preprocessing.py::PreProcessedElements.load`` / ``save``.)
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops.fused_open import PL
+from .ops.limbs import L
+
+
+def _from_u32(arr, lead: int, what: str, device):
+    arr = np.asarray(arr)
+    if arr.dtype != np.uint32 or arr.ndim < 1 or arr.shape[0] != lead:
+        raise ValueError(f"{what} must be np.uint32 [{lead}, ...], got "
+                         f"{arr.dtype} {arr.shape}")
+    # np.array copies: the source may be a read-only view of foreign memory
+    return torch.from_numpy(
+        np.array(arr, order="C").view(np.int32)).to(torch.device(device))
+
+
+def _to_u32(t, lead: int, what: str) -> np.ndarray:
+    if t.dtype != torch.int32 or t.dim() < 1 or t.shape[0] != lead:
+        raise ValueError(f"{what} must be int32 [{lead}, ...], got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    return t.contiguous().cpu().numpy().view(np.uint32)
+
+
+def from_reference_limbs(limbs, device=torch.device("cuda")):
+    """np.uint32 [L, ...] limb array of the reference -> int32 tensor."""
+    return _from_u32(limbs, L, "limbs", device)
+
+
+def to_reference_limbs(limbs) -> np.ndarray:
+    """int32 [L, ...] limb tensor -> np.uint32 array for the reference."""
+    return _to_u32(limbs, L, "limbs")
+
+
+def from_reference_packed(packed, device=torch.device("cuda")):
+    """np.uint32 [PL, ...] packed words of the reference -> int32 tensor."""
+    return _from_u32(packed, PL, "packed words", device)
+
+
+def to_reference_packed(packed) -> np.ndarray:
+    """int32 [PL, ...] packed tensor -> np.uint32 array for the reference."""
+    return _to_u32(packed, PL, "packed words")

@@ -1,0 +1,331 @@
+"""Shared arithmetic core of the folded-band kernels, and the packed format.
+
+Counterpart of the core of ``honeybadgermpc_tpu/ops/fused_open.py`` (not of
+its three-kernel faithful open, which is not ported yet). Every
+band kernel of the port — the direct n-party open, the Vandermonde band
+matmul — computes
+
+    balanced base-256 int8 digit planes of the packed operand
+      -> int8 x int8 -> int32 dot against a host-folded int8 band
+      -> 32-diagonal carry-save fold into 19 limbs
+      -> two 16-bit REDC rounds -> one conditional subtract -> pack.
+
+This module holds the host routines that build the bands (numpy / ints,
+byte-identical to the reference's) and plain-tensor twins of the device
+core, from which every kernel's plain PyTorch version is built. The CUDA
+twin of the same core is ``csrc/field_core.cuh``.
+
+Balanced base-256 digit scheme: both operands decompose into 32 SIGNED
+digits in [-128, 127] (any value < p fits: p's top byte is 0x73, so the
+balanced carry never spills into a 33rd digit). Signedness is handled
+without branching:
+  * each int32 diagonal (|diag| <= NBAL*k*128^2) gets a +bias(k) offset so
+    the carry-save fold stays unsigned;
+  * the fold's accumulator is INITIALIZED with the 16-bit limbs of
+    I = M*p - sum_r bias * 256^r (M chosen so every reachable value stays
+    nonnegative), which cancels the bias mod p;
+  * two REDC rounds bring the result under 2p — a single conditional
+    subtract finishes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .limbs import L, MASK, N0, P, P_LIMBS, W
+
+TB = 128            # chunk tile of the reference's layouts (kept for parity)
+PL = 8              # packed limb rows: two 16-bit limbs per 32-bit word
+NBAL = 32
+_BAL_ROUNDS = 2
+KMAX = 64
+_NL = 19            # carry-save limbs of the fold accumulator
+_D_STRIDE = 40      # words per row of a warp's transpose area (field_core.cuh)
+
+_P = [int(x) for x in P_LIMBS]
+
+
+def _round8(x: int) -> int:
+    return -(-x // 8) * 8
+
+
+def _bal_bias(k: int) -> int:
+    """Max |diagonal|: NBAL*k products of balanced digits (|.| <= 2^14)."""
+    return NBAL * k * (1 << 14)
+
+
+def _bal_digits(x: int):
+    """Balanced base-256 digits of 0 <= x < p (32 signed digits)."""
+    out = []
+    c = 0
+    for _ in range(NBAL):
+        u = (x & 0xFF) + c
+        x >>= 8
+        if u >= 128:
+            out.append(u - 256)
+            c = 1
+        else:
+            out.append(u)
+            c = 0
+    assert x == 0 and c == 0
+    return out
+
+
+def _bal_fold_init(k: int):
+    """16-bit limbs of I = M*p - B0 (see scheme comment); M covers both the
+    per-diagonal bias sum B0 and the most negative reachable value
+    (|V| <= B0 by construction of bias(k))."""
+    b0 = sum(_bal_bias(k) * (1 << (8 * r)) for r in range(NBAL))
+    m = 2 * -(-b0 // P)
+    i_val = m * P - b0
+    assert i_val >= 0
+    limbs = []
+    for _ in range(_NL):
+        limbs.append(i_val & 0xFFFF)
+        i_val >>= 16
+    assert i_val == 0
+    return tuple(limbs)
+
+
+def _folded_band_host(mat_int, rounds: int, ncp: int) -> np.ndarray:
+    """mat_int: [k][ncols] plain-int matrix. Returns int8 band
+    W[NBAL*ncp, NBAL*k] (ncp >= ncols, extra columns zero) with
+
+      W[r*ncp + col, s*k + kk] = baldigit_r(m[kk][col] * 256^s
+                                            * 2^(16*rounds) mod p)
+
+    so that dotted against balanced base-256 planes of Montgomery-form
+    data the diagonals represent sum_k a_mont_k * m_k * 2^(16*rounds) —
+    after `rounds` 16-bit REDC steps the result is (sum a_k m_k) in
+    Montgomery form."""
+    k = len(mat_int)
+    ncols = len(mat_int[0])
+    assert ncp >= ncols
+    band = np.zeros((NBAL * ncp, NBAL * k), np.int8)
+    for kk in range(k):
+        for col in range(ncols):
+            for s in range(NBAL):
+                w = mat_int[kk][col] * pow(
+                    2, 8 * s + 16 * rounds, P) % P
+                dig = _bal_digits(w)
+                for r in range(NBAL):
+                    band[r * ncp + col, s * k + kk] = dig[r]
+    return band
+
+
+def _pad_band(band: np.ndarray, kcols: int) -> np.ndarray:
+    if band.shape[1] < kcols:
+        band = np.concatenate(
+            [band, np.zeros((band.shape[0], kcols - band.shape[1]),
+                            np.int8)], axis=1)
+    return band[None]           # leading block axis, as in the reference
+
+
+def _lam_int(xs, x0):
+    """lambda_j(x0): Lagrange basis of nodes xs evaluated at x0 (ints)."""
+    out = []
+    for j, xj in enumerate(xs):
+        num, den = 1, 1
+        for m_, xm in enumerate(xs):
+            if m_ != j:
+                num = num * (x0 - xm) % P
+                den = den * (xj - xm) % P
+        out.append(num * pow(den, P - 2, P) % P)
+    return out
+
+
+def _kernel_band(band: np.ndarray, ncp: int, k: int) -> np.ndarray:
+    """Re-lay a reference band [NBAL*ncp, >= NBAL*k] (row r*ncp + col,
+    column s*k + kk) for the CUDA kernels: int32 [ncp, k, 2, 32, 4], the A
+    fragments of ``mma.sync.m16n8k32.s8`` in the order the threads load
+    them. For column `col`, k-step `kk` (one operand's 32 digits), m-tile
+    `mt` (diagonals 16mt..16mt+15) and thread `l` (g = l >> 2, tg = l & 3),
+    register j holds the four int8 band digits (lowest byte first)
+
+        row r = 16*mt + g + 8*(j & 1),   s = 16*(j >> 1) + 4*tg + 0..3
+
+    which is the PTX fragment layout of a row-major 16x32 int8 A tile. A
+    pure permutation of the reference's bytes."""
+    b = band[:, :NBAL * k].reshape(NBAL, ncp, NBAL, k)       # r, col, s, kk
+    lane = np.arange(32)
+    g, tg = lane >> 2, lane & 3
+    j = np.arange(4)
+    mt = np.arange(2)
+    e = np.arange(4)
+    r = (16 * mt[:, None, None] + g[None, :, None]
+         + 8 * (j[None, None, :] & 1))                       # [mt, l, j]
+    sdig = (16 * (j[None, :, None] >> 1) + 4 * tg[:, None, None]
+            + e[None, None, :])                              # [l, j, e]
+    # gather -> [mt, l, j, e, col, kk]
+    frag = b[r[:, :, :, None], :, sdig[None, :, :, :], :]
+    frag = np.ascontiguousarray(frag.transpose(4, 5, 0, 1, 2, 3))
+    return frag.view(np.int32).reshape(ncp, k, 2, 32, 4)
+
+
+def _smem_plan(k: int):
+    """Launch shape of a band kernel for a contraction of k operands:
+    (tl lanes per block, wg column slots); the block has tl*wg threads.
+    It keeps its lanes' digit planes (8k words per lane, row stride tl+8)
+    and a 5 KB transpose area per warp in shared memory, inside the 227 KB
+    a Hopper block may use. The kernels are bound by operand fetch latency
+    and bandwidth, so many warps per block come first (16, on 64 lanes
+    where they fit), fewer lanes and then fewer warps for long
+    contractions."""
+    for tl, threads in ((64, 512), (32, 512), (32, 256)):
+        stage = (threads // 32) * 32 * _D_STRIDE * 4
+        if 4 * PL * k * (tl + 8) + stage + 1024 <= 226 * 1024:
+            return tl, threads // tl
+    raise ValueError(f"contraction length {k} does not fit shared memory")
+
+
+def _fold_consts(k: int):
+    """(init limbs as a C array, bias) of the fold for contraction k."""
+    init = (ctypes.c_uint32 * 19)(*_bal_fold_init(k))
+    return init, _bal_bias(k)
+
+
+def _launch_stream(t) -> int:
+    """The raw CUDA stream a kernel on tensor `t` launches on. Kernels go
+    to the current device's current stream, so `t` must live there."""
+    if t.device.index != torch.cuda.current_device():
+        raise ValueError(f"tensor on {t.device}, but the current CUDA "
+                         f"device is {torch.cuda.current_device()}")
+    return torch.cuda.current_stream().cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# Packed format
+# ---------------------------------------------------------------------------
+
+def _wrap32(x64):
+    """int64 holding a uint32 value -> int32 with the same bit pattern."""
+    return torch.where(x64 >= (1 << 31), x64 - (1 << 32), x64).to(torch.int32)
+
+
+def _u32(x32):
+    """int32 bit pattern -> int64 holding the uint32 value."""
+    return x32.to(torch.int64) & 0xFFFFFFFF
+
+
+def pack_limbs(limbs):
+    """[L, ...] 16-bit int32 limbs -> [PL, ...] packed int32 words."""
+    rows = []
+    for j in range(PL):
+        hi = limbs[2 * j + 1]
+        hi = torch.where(hi >= 0x8000, hi - 0x10000, hi)   # sign half
+        rows.append(limbs[2 * j] | (hi * 0x10000))
+    return torch.stack(rows, dim=0)
+
+
+def unpack_limbs(packed):
+    """[PL, ...] packed int32 words -> [L, ...] 16-bit int32 limbs."""
+    rows = []
+    for w in range(PL):
+        rows.append(packed[w] & 0xFFFF)
+        rows.append((packed[w] >> 16) & 0xFFFF)
+    return torch.stack(rows, dim=0)
+
+
+# ---------------------------------------------------------------------------
+# Plain-tensor twins of the device core (int64 arithmetic)
+# ---------------------------------------------------------------------------
+
+def _balance_bytes(us):
+    """us: NBAL int64 byte tensors [k, lanes] -> int8 [NBAL*k, lanes]
+    balanced planes (row s*k + kk) via the sequential carry chain:
+    d_s = byte_s + c, minus 256 when >= 128. A carry out of the last digit
+    (only possible for a value >= p) is dropped, as in the reference."""
+    blocks = []
+    c = None
+    for s in range(NBAL):
+        t = us[s] if c is None else us[s] + c
+        ge = (t >= 128).to(torch.int64)
+        blocks.append((t - (ge << 8)).to(torch.int8))
+        c = ge
+    return torch.cat(blocks, dim=0)
+
+
+def _planes_of_packed(words):
+    """Balanced planes from PACKED words int32 [PL, k, lanes]."""
+    w64 = _u32(words)
+    us = [(w64[s // 4] >> (8 * (s % 4))) & 0xFF for s in range(NBAL)]
+    return _balance_bytes(us)
+
+
+def _pack16(limbs):
+    """L int64 16-bit limb tensors -> packed int32 [PL, ...]."""
+    return _wrap32(torch.stack([limbs[2 * j] | (limbs[2 * j + 1] << 16)
+                                for j in range(PL)], dim=0))
+
+
+def _redc_step(t):
+    """One 16-bit Montgomery REDC round on the carry-save limb list t:
+    t <- (t + m*p) >> 16."""
+    m = ((t[0] & MASK) * N0) & MASK
+    for j in range(L):
+        pr = m * _P[j]
+        t[j] = t[j] + (pr & MASK)
+        t[j + 1] = t[j + 1] + (pr >> W)
+    carry0 = t[0] >> W
+    t = t[1:] + [torch.zeros_like(t[0])]
+    t[0] = t[0] + carry0
+    return t
+
+
+def _fold_reduce_bal(ds, init_limbs, bias):
+    """NBAL signed int64 diagonal tensors (8-bit spacing, |d| <= bias) ->
+    L canonical Montgomery limb tensors. The per-diagonal bias keeps the
+    carry-save fold unsigned; `init_limbs` cancels it mod p. Two REDC
+    rounds, one conditional subtract."""
+    t = [torch.full_like(ds[0], int(init_limbs[j])) for j in range(_NL)]
+    for r in range(NBAL):
+        d = ds[r] + bias                         # 0 <= d < 2*bias <= 2^27
+        j, off = divmod(8 * r, W)
+        if off == 0:                             # 16-bit aligned: 2 chunks
+            t[j] = t[j] + (d & 0xFFFF)
+            t[j + 1] = t[j + 1] + (d >> 16)
+        else:                                    # *2^8: 3 chunks
+            t[j] = t[j] + ((d << 8) & 0xFFFF)
+            t[j + 1] = t[j + 1] + ((d >> 8) & 0xFFFF)
+            if j + 2 < _NL:
+                t[j + 2] = t[j + 2] + (d >> 24)
+    for _ in range(_BAL_ROUNDS):
+        t = _redc_step(t)
+    # value < 2p: carry-normalize and subtract p at most once
+    c = torch.zeros_like(t[0])
+    out = []
+    for j in range(L):
+        v = t[j] + c
+        out.append(v & 0xFFFF)
+        c = v >> 16
+    hi = c + t[L]
+    borrow = torch.zeros_like(t[0])
+    d2 = []
+    for j in range(L):
+        v = out[j] - _P[j] - borrow
+        d2.append(v & 0xFFFF)
+        borrow = (v >> 16) & 1
+    take = (hi != 0) | (borrow == 0)
+    return [torch.where(take, d2[j], out[j]) for j in range(L)]
+
+
+def _int_dot(w_blk, planes):
+    """int8 [M, K] @ int8 [K, N] -> exact int64 [M, N]. CUDA PyTorch has no
+    integer matmul, so on the card the dot runs in float64, which is exact
+    here: |sum| <= NBAL*KMAX_DIRECT*2^14 = 2^26 < 2^53."""
+    if w_blk.is_cuda:
+        return (w_blk.to(torch.float64) @ planes.to(torch.float64)).to(
+            torch.int64)
+    return w_blk.to(torch.int64) @ planes.to(torch.int64)
+
+
+def _band_dot_fold(w_blk, planes, ncp, init_limbs, bias):
+    """int8 [NBAL*ncp, kcols] @ int8 [kcols, lanes] -> L canonical limb
+    tensors of shape [ncp, lanes]. kcols may exceed the plane rows (zero
+    band padding): only the first planes.shape[0] band columns count."""
+    d = _int_dot(w_blk[:, :planes.shape[0]], planes)
+    ds = [d[r * ncp:(r + 1) * ncp] for r in range(NBAL)]
+    return _fold_reduce_bal(ds, init_limbs, bias)
