@@ -2,15 +2,23 @@
 
     python3 chip_smoke.py            # full size; needs one CUDA card
 
-Drives the port's main path — deal -> pack -> open (detect-only) -> check —
-through the entry points a user calls, at n=64, t=21 in segments of
-22*768 = 16896 sharings, 64 segments resident (about 2.2 GB of packed
-shares). The first run builds the kernels from
-``honeybadgermpc_tpu_torch/csrc`` into ``honeybadgermpc_tpu_torch/build``.
+Drives the port's two main paths through the entry points a user calls,
+at n=64, t=21:
+
+  * the open path — deal -> pack -> open (detect-only) -> check — in
+    segments of 22*768 = 16896 sharings, 64 segments resident (about 2.2 GB
+    of packed shares);
+  * the offline path — verified Beaver triples from the fused RanSha /
+    RanDouSha pipeline with the packed finish,
+    ``sim_offline_jit("generate_triples_packed", 64, 21, 4096)``: 90,112
+    triples per call.
+
+The first run builds the kernels from ``honeybadgermpc_tpu_torch/csrc``
+into ``honeybadgermpc_tpu_torch/build``.
 
 Phases, each printing one JSON line; any failure exits non-zero:
   1 device    a CUDA card must be present; prints its name and power limit
-  2 build     compile and load the three kernels
+  2 build     compile and load the seven kernels
   3 kernels   each kernel against its plain PyTorch version on the card,
               bit for bit, at small, unaligned and main-path shapes, with
               times and the computed bound
@@ -19,6 +27,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
   5 faults    a flipped word is detected and charged to the right party
   6 state     save the pool, load it into a fresh dealer, same secrets
   7 timing    opened and dealt sharings per second
+  8 triples   one triple call; ok; launch counters moved; a, b, ab opened
+              at degree t with nerr == 0 and ab == a*b mod p for every real
+              triple on the card, and for a sample in Python ints
+  9 triple faults   a flipped word in a receive tensor flips ok
+ 10 triple timing   triples per second and device time per stage
 
 The last line of the output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -30,7 +43,12 @@ int8 dots (H100 SXM, dense). The sampler does 32-bit integer work on the
 CUDA cores, for which the data sheet names no rate; its bound uses the
 card's instruction-rate limit, 33.5 T instructions/s (4 warp instructions
 per SM and clock, the same 128 lanes that give 67 TFLOP/s of float32 at 2
-flop each), over the least number of instructions the arithmetic needs.
+flop each), over the least number of instructions the function needs on
+32-bit words (not the number the kernel's 16-bit limbs spend). The deal
+kernel does both kinds of work (the sampler on the CUDA cores, the encode
+dot on the tensor cores); its operation time is the larger of the two. The
+packed finish functions are counted like the sampler; both come out bound
+by their bytes.
 """
 
 import argparse
@@ -50,13 +68,17 @@ from honeybadgermpc_tpu_torch import _build  # noqa: E402
 from honeybadgermpc_tpu_torch.ops import band_matmul as bm  # noqa: E402
 from honeybadgermpc_tpu_torch.ops import field_kernels as fk  # noqa: E402
 from honeybadgermpc_tpu_torch.ops import fused_open_direct as fod  # noqa: E402
+from honeybadgermpc_tpu_torch.ops import fused_randousha as fr  # noqa: E402
+from honeybadgermpc_tpu_torch.ops import montgomery as mont  # noqa: E402
 from honeybadgermpc_tpu_torch.ops.fpmatmul import \
     _vandermonde_int_rows  # noqa: E402
 from honeybadgermpc_tpu_torch.ops.fused_open import (  # noqa: E402
     PL, _lam_int, pack_limbs, unpack_limbs)
-from honeybadgermpc_tpu_torch.ops.limbs import L, P  # noqa: E402
+from honeybadgermpc_tpu_torch.ops.limbs import L, P, R_MOD_P  # noqa: E402
 from honeybadgermpc_tpu_torch.parallel.reconstruct import \
     _sim_reconstruct_packed_jit  # noqa: E402
+from honeybadgermpc_tpu_torch.runtime.offline import \
+    sim_offline_jit  # noqa: E402
 from honeybadgermpc_tpu_torch.runtime.preprocessing import \
     PreProcessedElements  # noqa: E402
 
@@ -67,15 +89,41 @@ SEG = K * C                       # 16896 sharings per segment
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 INT32_OPS_PER_S = 67e12 / 2     # 128 lanes x 1 instruction
-# Least 32-bit integer instructions per sampled element
-# (csrc/rand_limbs.cu), counting what the hardware can fuse (three-input
-# adds, multiply-add, three-input logic) as one: 6 Threefry calls x
-# (20 rounds x (add, rotate, xor) + 2 + 5 x 2 key adds), 24 halfword
-# splits, 9 REDC rounds x (2 + 16 x (multiply, low half + add, high half
-# + add) + 2), carry normalization 16 x 3, conditional subtract 16 x 4.
-RAND_OPS_PER_ELEMENT = 6 * (20 * 3 + 2 + 10) + 24 + 9 * (2 + 16 * 4 + 2) \
-    + 16 * 3 + 16 * 4
-KERNEL_MODULES = {"open_direct": fod, "band_matmul": bm, "rand_limbs": fk}
+# Least 32-bit integer instructions per sampled element, for the function
+# and not for the limb width csrc/rand_limbs.cu chose: on 32-bit words with
+# multiply-add-with-carry, counting what the hardware can fuse (three-input
+# adds and logic) as one. 6 Threefry calls x (20 rounds x (add, rotate,
+# xor) + 2 + 5 x 2 key adds) give the 12 words; REDC by 2^-144 is four
+# 32-bit rounds and one 16-bit round x (m + 8 x (low, high half
+# multiply-add) + 2 for the carry out); 8 funnel shifts realign the odd 16
+# bits; conditional subtract 8 + 8; 16 for the 16-bit limbs of the output.
+RAND_OPS_PER_ELEMENT = 6 * (20 * 3 + 2 + 10) + 5 * (1 + 8 * 2 + 2) + 8 \
+    + 16 + 16
+KT = 4096                         # slots of one triple call
+N_OUT = N - 2 * T                 # 22 extracted sharings per slot
+N_OUTP = -(-N_OUT // 8) * 8       # 24 rows of the padded keep tensor
+# Least 32-bit integer instructions per element of the packed finish
+# functions, same counting: the operands arrive as 8 words of 32 bits, so
+# nothing is unpacked. mul_add: a 256-bit Montgomery product is 8 x 8 x
+# (low, high half multiply-add) for the product and as many for the
+# reduction, plus 8 for m and 8 x 2 carries out; its conditional subtract
+# 8 + 8; the add 8 and its conditional subtract 8 + 8. sub_bcast: borrow
+# chain 8, add-back chain 8, select 8. (csrc/packed_arith.cu works on
+# 16-bit limbs and spends about eight times as many; that is the kernel's
+# choice, not the function's need.)
+MUL_ADD_OPS_PER_ELEMENT = 2 * (8 * 8 * 2) + 8 + 16 + 16 + 8 + 16
+SUB_BCAST_OPS_PER_ELEMENT = 8 + 8 + 8
+OPEN_PATH_KERNELS = ("open_direct", "band_matmul", "rand_limbs")
+# kernel name -> (module, name of its launch counter there)
+KERNEL_COUNTERS = {
+    "open_direct": (fod, "launches"),
+    "band_matmul": (bm, "launches"),
+    "rand_limbs": (fk, "launches"),
+    "randousha_deal": (fr, "launches_deal"),
+    "randousha_extract": (fr, "launches_extract"),
+    "mul_add_packed4": (fk, "launches_mul_add4"),
+    "sub_bcast_packed4": (fk, "launches_sub_bcast4"),
+}
 
 
 def say(phase, **rec):
@@ -132,13 +180,27 @@ def max_abs_err(a, b):
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
+def timed_once(fn):
+    """Device time in ms of one call of fn() (CUDA events). The caller has
+    run fn() before, so the allocator is warm."""
+    sync()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    sync()
+    return start.elapsed_time(end)
+
+
 def reset_launches():
-    for mod in KERNEL_MODULES.values():
-        mod.launches = 0
+    for mod, attr in KERNEL_COUNTERS.values():
+        setattr(mod, attr, 0)
 
 
 def read_launches():
-    return {name: mod.launches for name, mod in KERNEL_MODULES.items()}
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in KERNEL_COUNTERS.items()}
 
 
 # -- bounds ------------------------------------------------------------------
@@ -164,6 +226,37 @@ def band_bound(b, k, m):
 
 def rand_bound(numel):
     return bound(4 * L * numel, RAND_OPS_PER_ELEMENT * numel, INT32_OPS_PER_S)
+
+
+def deal_bound(n, k, sp):
+    """Writes the receive tensor, reads the band; the encode dot on the
+    tensor cores and the sampler on the CUDA cores, whichever is longer."""
+    b = n * sp
+    nbytes = 4 * PL * n * b + n * 8 * k * 128
+    dot_ms = 2 * n * 32 * 32 * k * b / INT8_OPS_PER_S * 1e3
+    draw_ms = RAND_OPS_PER_ELEMENT * k * b / INT32_OPS_PER_S * 1e3
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = max(dot_ms, draw_ms)
+    if by_bytes >= by_ops:
+        return by_bytes, "bytes"
+    return by_ops, "operations"
+
+
+def extract_bound(n, n_out, n_outp, sp):
+    b = n * sp
+    nbytes = 4 * PL * b * (n + n_outp + 1) + (n_out + 1) * 8 * n * 128
+    ops = 2 * (n_out + 1) * 32 * 32 * n * b
+    return bound(nbytes, ops, INT8_OPS_PER_S)
+
+
+def mul_add_bound(numel):
+    return bound(4 * 4 * PL * numel, MUL_ADD_OPS_PER_ELEMENT * numel,
+                 INT32_OPS_PER_S)
+
+
+def sub_bcast_bound(numel, n):
+    return bound(4 * PL * (2 * numel + numel // n),
+                 SUB_BCAST_OPS_PER_ELEMENT * numel, INT32_OPS_PER_S)
 
 
 # -- phase 3: kernels against their plain versions ---------------------------
@@ -316,8 +409,9 @@ def phase_main(dev, nseg, reps):
 
     nerr = sum(int(o[1].sum()) for o in outs)
     check(nerr == 0, f"main path: nerr = {nerr} on honest shares")
-    for name, count in launches.items():
-        check(count > 0, f"main path never launched the {name} kernel")
+    for name in OPEN_PATH_KERNELS:
+        check(launches[name] > 0,
+              f"main path never launched the {name} kernel")
     check(launches["open_direct"] == nseg, "one open launch per segment")
     for sec, ne in outs:
         check(tuple(sec.shape) == (PL, SEG) and sec.dtype == torch.int32
@@ -396,12 +490,308 @@ def phase_main(dev, nseg, reps):
                       "timed_repeats": reps}
 
 
+# -- offline path: the four kernels against their plain versions -------------
+
+def deal_plain_full(key, n, t, degree, sp, pts, dev, window=512):
+    """The deal's plain version over all sp slots, `window` slots at a time
+    (its int64 dot intermediates at 64 x 4096 lanes would take gigabytes)."""
+    parts = [fr._randousha_deal_plain(key, n, t, degree, sp, pts, dev,
+                                      slot0=s0,
+                                      nslot=min(window, sp - s0))
+             for s0 in range(0, sp, window)]
+    return torch.cat(parts, dim=-1)
+
+
+def compare_deal(dev, n, t, degree, sp, key):
+    pts = fr._party_points(n)
+    got = fr.randousha_deal(key, n, t, degree, sp, pts, dev)
+    want = deal_plain_full(key, n, t, degree, sp, pts, dev)
+    sync()
+    check(torch.equal(got, want),
+          f"randousha_deal != plain at n={n} t={t} degree={degree} sp={sp}")
+    return max_abs_err(got, want), got, pts
+
+
+def compare_extract(dev, n, t, sp, key, cols):
+    run = fr._randousha_calls(n, t, sp, fr._party_points(n), device=dev)
+    n_out, n_outp = run.meta[:2]
+    band = run.folded_band(key)[0]
+    keep, z = fr.randousha_extract(cols, band, n_out, n_outp)
+    keep_p, z_p = fr._randousha_extract_plain(cols, band, n_out, n_outp)
+    sync()
+    check(torch.equal(keep, keep_p) and torch.equal(z, z_p),
+          f"randousha_extract != plain at n={n} t={t} sp={sp}")
+    check(torch.equal(keep[:, :, n_out], z)
+          and not bool(keep[:, :, n_out + 1:].any()),
+          "extract: row n_out must be the check sharing, rows above zero")
+    return max(max_abs_err(keep, keep_p), max_abs_err(z, z_p)), keep, z, band
+
+
+def compare_finish(dev, a, b, c, pad):
+    """mul_add_packed4 (4D and padded flat form) and sub_bcast_packed4 (its
+    minuend a prefix view of a longer tensor) against their plain versions."""
+    _, n, r, s_ = a.shape
+    got = fk.mul_add_packed4(a, b, c)
+    want = fk._mul_add_packed4_plain(a, b, c)
+    flat = fk.mul_add_packed4_flat(a, b, c, pad=pad)
+    sync()
+    check(torch.equal(got, want), f"mul_add_packed4 != plain at {a.shape}")
+    check(torch.equal(flat[:, :, :r * s_], want.reshape(PL, n, r * s_))
+          and not bool(flat[:, :, r * s_:].any()),
+          f"mul_add_packed4 padded form wrong at {a.shape} pad={pad}")
+    err_ma = max_abs_err(got, want)
+    long = torch.cat([got[:, 0].reshape(PL, r * s_),
+                      got[:, 0].reshape(PL, r * s_)[:, :pad + 3]], dim=-1)
+    minuend = long[:, :r * s_].reshape(PL, r, s_)     # planes lie apart
+    got2 = fk.sub_bcast_packed4(minuend, b)
+    want2 = fk._sub_bcast_packed4_plain(minuend, b)
+    sync()
+    check(torch.equal(got2, want2), f"sub_bcast_packed4 != plain at {b.shape}")
+    return err_ma, max_abs_err(got2, want2), minuend
+
+
+def phase_kernels_offline(dev):
+    t0 = time.perf_counter()
+    err = {"randousha_deal": 0, "randousha_extract": 0,
+           "mul_add_packed4": 0, "sub_bcast_packed4": 0}
+    shapes = []
+    # small: n=8, t=2, one slot tile; values < p in every limb pattern come
+    # from the deal itself
+    for degree in (2, 4):
+        e, cols_s, _ = compare_deal(dev, 8, 2, degree, 128, (5, 6))
+        err["randousha_deal"] = max(err["randousha_deal"], e)
+        shapes.append(f"randousha_deal n=8 t=2 degree={degree} sp=128")
+        e, keep_s, _, _ = compare_extract(dev, 8, 2, 128, (5, 6), cols_s)
+        err["randousha_extract"] = max(err["randousha_extract"], e)
+        shapes.append(f"randousha_extract n=8 t=2 sp=128 (degree {degree})")
+    sm = keep_s[:, :3, :5, :77].contiguous()           # unaligned [8,3,5,77]
+    e1, e2, _ = compare_finish(dev, sm, sm.flip(3), sm.flip(2), 7)
+    err["mul_add_packed4"], err["sub_bcast_packed4"] = e1, e2
+    shapes.append("mul_add_packed4, sub_bcast_packed4 [8,3,5,77]")
+
+    # main-path width: n=64, t=21, all 4096 slots, both degrees
+    key = (41, 42)
+    e, cols_t, pts = compare_deal(dev, N, T, T, KT, key)
+    err["randousha_deal"] = max(err["randousha_deal"], e)
+    e, keep_t, _, band = compare_extract(dev, N, T, KT, key, cols_t)
+    err["randousha_extract"] = max(err["randousha_extract"], e)
+    e, cols_2t, _ = compare_deal(dev, N, T, 2 * T, KT, key)
+    err["randousha_deal"] = max(err["randousha_deal"], e)
+    check(not torch.equal(cols_t, cols_2t), "the two degrees must differ")
+    e, keep_2t, _, _ = compare_extract(dev, N, T, KT, key, cols_2t)
+    err["randousha_extract"] = max(err["randousha_extract"], e)
+    shapes += [f"randousha_deal n={N} t={T} degree={d} sp={KT} (all slots)"
+               for d in (T, 2 * T)]
+    shapes.append(f"randousha_extract n={N} t={T} sp={KT} (both degrees)")
+    del cols_2t
+    keep_b = keep_t.roll(1, dims=3)                    # a second operand
+    pad = (-N_OUTP * KT) % (2 * T + 1)
+    e1, e2, minuend = compare_finish(dev, keep_t, keep_b, keep_2t, pad)
+    err["mul_add_packed4"] = max(err["mul_add_packed4"], e1)
+    err["sub_bcast_packed4"] = max(err["sub_bcast_packed4"], e2)
+    shapes.append(f"mul_add_packed4, sub_bcast_packed4 [8,{N},{N_OUTP},{KT}]"
+                  f" pad={pad}")
+
+    n_out, n_outp = N_OUT, N_OUTP
+    numel = N * N_OUTP * KT
+    times = {}
+    for name, degree in (("randousha_deal", T),
+                         ("randousha_deal_2t", 2 * T)):
+        times[name] = (
+            kernel_ms(lambda d=degree: fr.randousha_deal(key, N, T, d, KT,
+                                                         pts, dev),
+                      10, "randousha_deal_kernel"),
+            timed_once(lambda d=degree: deal_plain_full(key, N, T, d, KT,
+                                                        pts, dev)),
+            deal_bound(N, degree + 1, KT))
+    times["randousha_extract"] = (
+        kernel_ms(lambda: fr.randousha_extract(cols_t, band, n_out, n_outp),
+                  10, "randousha_extract_kernel"),
+        timed_once(lambda: fr._randousha_extract_plain(cols_t, band, n_out,
+                                                       n_outp)),
+        extract_bound(N, n_out, n_outp, KT))
+    times["mul_add_packed4"] = (
+        kernel_ms(lambda: fk.mul_add_packed4_flat(keep_t, keep_b, keep_2t,
+                                                  pad=pad),
+                  10, "mul_add_packed4_kernel"),
+        timed_once(lambda: fk._mul_add_packed4_plain(keep_t, keep_b,
+                                                     keep_2t)),
+        mul_add_bound(numel))
+    times["sub_bcast_packed4"] = (
+        kernel_ms(lambda: fk.sub_bcast_packed4(minuend, keep_t), 10,
+                  "sub_bcast_packed4_kernel"),
+        timed_once(lambda: fk._sub_bcast_packed4_plain(minuend, keep_t)),
+        sub_bcast_bound(numel, N))
+    say("offline_kernels_vs_plain", ok=True,
+        tolerance="exact (torch.equal)", shapes=shapes,
+        timed_by={k: v[0][1] for k, v in times.items()},
+        seconds=round(time.perf_counter() - t0, 3))
+    return err, {k: (v[0][0], v[1], v[2]) for k, v in times.items()}
+
+
+# -- phases 8-10: verified Beaver triples ------------------------------------
+
+def open_rows(run, p4):
+    """Open a packed 4D share tensor [PL, n, R, S] at degree t -> (opened
+    [PL, R, S], nerr [n]); the column count is padded to a multiple of
+    t+1 with zero sharings."""
+    _, n, r, s_ = p4.shape
+    flat = p4.reshape(PL, n, r * s_)
+    pad = (-r * s_) % K
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros((PL, n, pad))], dim=-1)
+    sec, nerr = run(flat)
+    return sec[:, :r * s_].reshape(PL, r, s_), nerr
+
+
+def plain_int(packed_word_col):
+    """One packed element [PL] on the card -> its plain residue (out of
+    Montgomery form) as a Python int."""
+    limbs = unpack_limbs(packed_word_col.reshape(PL, 1)).cpu().tolist()
+    v = sum(int(limbs[j][0]) << (16 * j) for j in range(L))
+    return v * pow(R_MOD_P, P - 2, P) % P
+
+
+def flip_word(degree_hit):
+    def tamper(cols, degree):
+        if degree == degree_hit:
+            cols[3, 5, 7, KT // 4 + 1] ^= 0x10   # dealer 7's share for party 5
+        return cols
+    return tamper
+
+
+def stage_times(fn, reps):
+    """Device time per call of every stage of fn(i), from the profiler's
+    device trace: the port's kernels by name, everything else (PyTorch's
+    own elementwise and copy kernels) as 'other'."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    names = ("randousha_deal_kernel", "randousha_extract_kernel",
+             "open_direct_kernel", "mul_add_packed4_kernel",
+             "sub_bcast_packed4_kernel")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(reps):
+            fn(i)
+        sync()
+    out = {nm: 0.0 for nm in names}
+    out["other"] = 0.0
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "device_time_total",
+                     getattr(ev, "cuda_time_total", 0.0))
+        hit = [nm for nm in names if nm in ev.key]
+        out[hit[0] if hit else "other"] += us
+    return {k.replace("_kernel", "") + "_ms": v / reps / 1e3
+            for k, v in out.items()}
+
+
+def phase_triples(dev, reps):
+    fn = sim_offline_jit("generate_triples_packed", N, T, KT)
+    run = _sim_reconstruct_packed_jit(N, T, False, True, fallback=False,
+                                      replicate=False)
+    fn((2026, 0))                     # builds the bands and launchers
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    pa, pb, pab, ok = fn((2026, 1))
+    sync()
+    launches = read_launches()
+    call_s = time.perf_counter() - t0
+
+    check(bool(ok), "triple call: ok is false on an honest run")
+    want = {"randousha_deal": 4, "randousha_extract": 4,
+            "mul_add_packed4": 1, "sub_bcast_packed4": 1, "open_direct": 5}
+    for name, count in want.items():
+        check(launches[name] == count,
+              f"triple call launched {name} {launches[name]} times, "
+              f"expected {count}")
+    for x in (pa, pb, pab):
+        check(tuple(x.shape) == (PL, N, N_OUTP, KT)
+              and x.dtype == torch.int32 and x.is_cuda, "triple shapes")
+    nerr = 0
+    opened = []
+    for x in (pa, pb, pab):
+        sec, ne = open_rows(run, x)
+        nerr += int(ne.sum())
+        opened.append(sec[:, :N_OUT].contiguous())     # real triples only
+    check(nerr == 0, f"opening a, b, ab at degree t: nerr = {nerr}")
+    a, b, ab = opened                                  # [PL, 22, 4096]
+    # Montgomery form: mont_mul(aR, bR) = abR, so the product check needs
+    # no conversion
+    prod = pack_limbs(mont.mont_mul(unpack_limbs(a), unpack_limbs(b)))
+    nbad = int((prod != ab).any(dim=0).sum())
+    ntrip = N_OUT * KT
+    check(nbad == 0, f"ab != a*b for {nbad} of {ntrip} triples")
+    check(a.reshape(PL, -1).unique(dim=1).shape[1] == ntrip,
+          "the a secrets must be distinct")
+    sample = [(0, 0), (0, 1), (N_OUT // 3, KT // 2 - 1),
+              (N_OUT - 1, KT - 1), (N_OUT // 2, KT // 32)]
+    for r, c in sample:
+        ai, bi, abi = (plain_int(x[:, r, c]) for x in (a, b, ab))
+        check(abi == ai * bi % P, f"Python ints: ab != a*b at {(r, c)}")
+    say("triples", ok=True, n=N, t=T, k=KT, triples=ntrip,
+        padding_rows_excluded=N_OUTP - N_OUT, launches=launches, nerr=nerr,
+        product_mismatches=nbad, python_int_samples=len(sample),
+        peak_device_bytes=torch.cuda.max_memory_allocated(),
+        first_call_seconds=round(call_s, 4))
+    del pa, pb, pab, opened, prod
+
+    # phase 9: a flipped word between deal and extract flips ok
+    verdicts = {}
+    for name, hit in (("honest", None), ("degree_t", T),
+                      ("degree_2t", 2 * T)):
+        *_, okf = fr.sim_randousha_fused((7, 7), N, T, KT, padded=True,
+                                         tamper=flip_word(hit))
+        verdicts[name] = bool(okf)
+    check(verdicts == {"honest": True, "degree_t": False,
+                       "degree_2t": False},
+          f"fault verdicts wrong: {verdicts}")
+    _, okf = fr.sim_ransha_fused((7, 8), N, T, KT, padded=True,
+                                 tamper=flip_word(T))
+    check(not bool(okf), "RanSha did not detect the flipped word")
+    say("triple_fault_detection", ok=True, ok_flags=verdicts,
+        ransha_ok_flag=bool(okf))
+
+    # phase 10: timing (a new key every call)
+    for i in range(2):
+        fn((2027, i))
+    sync()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        out = fn((2028, i))
+    sync()
+    dt = (time.perf_counter() - t0) / reps
+    check(bool(out[3]), "timed triple call: ok is false")
+    stages = stage_times(lambda i: fn((2029, i)), min(reps, 5))
+    # the per-run extraction band alone (plain tensor code, three per call):
+    # host clock around calls that end in a synchronize
+    fold = fr._randousha_calls(N, T, KT, fr._party_points(N),
+                               device=dev).folded_band
+    fold((2030, 0))
+    sync()
+    t0 = time.perf_counter()
+    for i in range(5):
+        fold((2031, i))
+    sync()
+    band_ms = (time.perf_counter() - t0) / 5 * 1e3
+    return launches, {"triples_per_s": ntrip / dt, "ms_per_call": dt * 1e3,
+                      "triples_per_call": ntrip, "timed_calls": reps,
+                      "device_ms_per_call_by_stage": stages,
+                      "device_busy_ms_per_call": sum(stages.values()),
+                      "folded_band_ms_each": band_ms,
+                      "folded_bands_per_call": 3}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--nseg", type=int, default=64,
                     help="segments of 16896 sharings held on the card")
     ap.add_argument("--reps", type=int, default=10,
-                    help="timed repeats of opening every segment")
+                    help="timed repeats of opening every segment, and "
+                         "timed triple calls")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -426,6 +816,13 @@ def main():
     err, times = phase_kernels(dev)
     launches, rates = phase_main(dev, args.nseg, args.reps)
     say("timing", card=card, **rates)
+    torch.cuda.empty_cache()
+
+    err2, times2 = phase_kernels_offline(dev)
+    err.update(err2)
+    times.update(times2)
+    launches_triples, trip = phase_triples(dev, args.reps)
+    say("triple_timing", card=card, **trip)
 
     meta = {
         "open_direct": ("honeybadgermpc_tpu_torch/csrc/open_direct.cu",
@@ -437,16 +834,46 @@ def main():
         "band_matmul": ("honeybadgermpc_tpu_torch/csrc/band_matmul.cu",
                         "honeybadgermpc_tpu/ops/band_matmul.py:76",
                         f"B={SEG} k={K} m={N}"),
+        "randousha_deal": (
+            "honeybadgermpc_tpu_torch/csrc/randousha_deal.cu",
+            "honeybadgermpc_tpu/ops/fused_randousha.py:293",
+            f"n={N} degree t={T} (k={K}) sp={KT}"),
+        "randousha_extract": (
+            "honeybadgermpc_tpu_torch/csrc/randousha_extract.cu",
+            "honeybadgermpc_tpu/ops/fused_randousha.py:367",
+            f"n={N} n_out={N_OUT} (+1 check column) sp={KT}"),
+        "mul_add_packed4": (
+            "honeybadgermpc_tpu_torch/csrc/packed_arith.cu",
+            "honeybadgermpc_tpu/ops/pallas_field.py:244",
+            f"[{PL},{N},{N_OUTP},{KT}]"),
+        "sub_bcast_packed4": (
+            "honeybadgermpc_tpu_torch/csrc/packed_arith.cu",
+            "honeybadgermpc_tpu/ops/pallas_field.py:308",
+            f"[{PL},{N_OUTP},{KT}] - [{PL},{N},{N_OUTP},{KT}]"),
     }
     kernels = []
     for name, (source, replaces, shape) in meta.items():
         ms, plain_ms, (bound_ms, bound_by) = times[name]
-        kernels.append({
+        # launches: from the run of the path the kernel belongs to (the
+        # open path for the first three, the triple call for the rest);
+        # the open kernel serves both
+        on_open_path = launches[name] > 0
+        rec = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces,
+            "launches": (launches if on_open_path
+                         else launches_triples)[name],
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "shape": shape, "share_of_bound": bound_ms / ms})
+            "shape": shape, "share_of_bound": bound_ms / ms}
+        if name == "open_direct":
+            rec["launches_triple_call"] = launches_triples[name]
+        if name == "randousha_deal":          # its second shape: degree 2t
+            ms2, plain2, (bound2, by2) = times["randousha_deal_2t"]
+            rec["degree_2t"] = {"ms": ms2, "plain_ms": plain2,
+                                "bound_ms": bound2, "bound_by": by2,
+                                "shape": f"k={2 * T + 1}"}
+        kernels.append(rec)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -23,7 +23,9 @@ hand-written kernel (``csrc/``) or raises; it takes the plain PyTorch
 version only for a tensor that lies on the CPU.
 
 What is ported so far: the dealer for random sharings, the packed format
-and the detect-only single-kernel n-party open (deal -> pack -> open).
+and the detect-only single-kernel n-party open (deal -> pack -> open); and
+the fused offline path, RanSha / RanDouSha with the aggregated check and
+the packed triple finish (runtime/offline.py: verified Beaver triples).
 """
 
 __version__ = "0.1.0"

@@ -102,7 +102,15 @@ def _declare(lib):
     lib.hb_band_matmul.argtypes = [vp, vp, vp, i64, i32, i32, i32, i32,
                                    init, i32, vp]
     lib.hb_rand_limbs.argtypes = [u32, u32, vp, i64, vp]
-    for fn in (lib.hb_open_direct, lib.hb_band_matmul, lib.hb_rand_limbs):
+    lib.hb_randousha_deal.argtypes = [u32, u32, vp, vp, i64, i32, i32, i32,
+                                      i32, i32, init, i32, vp]
+    lib.hb_randousha_extract.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
+                                         i32, i32, init, i32, vp]
+    lib.hb_mul_add_packed4.argtypes = [vp, vp, vp, vp, i64, i64, i64, vp]
+    lib.hb_sub_bcast_packed4.argtypes = [vp, vp, vp, i64, i64, i64, vp]
+    for fn in (lib.hb_open_direct, lib.hb_band_matmul, lib.hb_rand_limbs,
+               lib.hb_randousha_deal, lib.hb_randousha_extract,
+               lib.hb_mul_add_packed4, lib.hb_sub_bcast_packed4):
         fn.restype = ctypes.c_int
 
 

@@ -1,0 +1,130 @@
+// randousha_extract: hyperinvertible extraction with the verification check
+// folded into the band (aggregate mode).
+//
+// Replaces the TPU kernel honeybadgermpc_tpu/ops/fused_randousha.py::
+// _ke_kernel with agg=True (called through ke_call). Same function: a lane
+// is one (destination party, slot) pair. The n values the party received in
+// that slot, one from every dealer, are the coefficients of a polynomial;
+// the band re-evaluates it at the first n_out party points (the extracted
+// random sharings, "keep") and at ONE more column that carries the
+// run-random rho-weighted sum of the 2t discarded evaluations (the
+// aggregated check sharing z). The band is built on the device for every
+// run (ops/fused_randousha.py::folded_band) and arrives in fragment order.
+//
+//   cols  uint32 [PL, n, n, sp]      receive tensor [word, dst, src, slot]
+//   band  int4   [ncp, n, 2, 32]     column, k-step (= source), m-tile,
+//                                    thread (ops/fused_open.py::_kernel_band)
+//   keep  uint32 [PL, n, n_outp, sp] rows < n_out: extracted sharings;
+//                                    row n_out: the check sharing; rows
+//                                    above it: zero sharings (their band
+//                                    columns are zero, so no dot is run)
+//   z     uint32 [PL, n, sp]         the check sharing alone, for its open
+//
+// What bounds it on an H100: operations. Per lane the int8 dot is
+// (n_out + 1) columns x 32 diagonals x 32n digits against 32n bytes read
+// and 32 (n_outp + 1) written; the fold/REDC epilogue on the CUDA cores
+// comes on top of the dot.
+//
+// Design: the shape of open_direct.cu at contraction length n. The digit
+// planes of a lane take 32n bytes (2 KB at n = 64), so a block holds 32
+// lanes and 16 column slots. Thread (slot, lane) builds the planes of
+// sources slot, slot+WG, ... (a warp reads 32 neighbouring slots of one
+// source row); after one barrier every warp walks its slot's columns on its
+// own and stores 8 words per lane and column, neighbouring lanes to
+// neighbouring addresses. Offsets pass 2^31 bytes: size_t throughout.
+#include "field_core.cuh"
+
+namespace hb {
+
+__global__ void randousha_extract_kernel(const uint32_t* __restrict__ cols,
+                                         const int4* __restrict__ band,
+                                         uint32_t* __restrict__ keep,
+                                         uint32_t* __restrict__ z, int n,
+                                         int sp, int n_out, int n_outp,
+                                         int tl, FoldConst fc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int wg = blockDim.x / tl;
+  const int tid = threadIdx.x;
+  const int laneid = tid & 31;
+  const int slot = tid / tl;               // column slot of this warp
+  const int lane = tid - slot * tl;        // lane within the block
+  const long long B = static_cast<long long>(n) * sp;
+  const long long b = static_cast<long long>(blockIdx.x) * tl + lane;
+  const bool valid = b < B;
+  const int dst = valid ? static_cast<int>(b / sp) : 0;
+  const int sl = valid ? static_cast<int>(b - static_cast<long long>(dst) * sp)
+                       : 0;
+  const int stride = tl + 8;
+  const BandSmem s = band_smem_carve(smem, n, tl, wg);
+  int* s_d = s.stage + (tid >> 5) * 32 * D_STRIDE;
+
+  // digit planes of the n received values; slot j takes sources j, j+wg, ...
+  for (int i = slot; i < n; i += wg) {
+    uint32_t carry = 0;
+#pragma unroll
+    for (int w = 0; w < PL; ++w) {
+      const uint32_t word =
+          valid ? cols[((static_cast<size_t>(w) * n + dst) * n + i) * sp + sl]
+                : 0u;
+      s.planes[(i * PL + w) * stride + lane] = balance_word(word, carry);
+    }
+  }
+
+  __syncthreads();                         // planes are ready
+
+  // no block barrier below: each warp walks its slot's columns on its own
+  const int ncols = (n_outp > n_out + 1) ? n_outp : n_out + 1;
+  for (int col = slot; col < ncols; col += wg) {
+    uint32_t words[PL];
+    if (col <= n_out) {                    // warp-uniform
+      int acc[2][4][4];
+      band_mma_column(acc, s.planes, stride, lane - laneid,
+                      band + static_cast<size_t>(col) * n * 64, n, laneid);
+      int32_t ds[NBAL];
+      uint32_t limbs[L];
+      band_mma_diagonals(acc, s_d, laneid, ds);
+      fold_reduce_bal(ds, fc, limbs);
+      pack16(limbs, words);
+    } else {                               // zero band column: zero sharing
+#pragma unroll
+      for (int w = 0; w < PL; ++w) words[w] = 0u;
+    }
+    if (!valid) continue;
+    if (col < n_outp) {
+#pragma unroll
+      for (int w = 0; w < PL; ++w)
+        keep[((static_cast<size_t>(w) * n + dst) * n_outp + col) * sp + sl] =
+            words[w];
+    }
+    if (col == n_out) {
+#pragma unroll
+      for (int w = 0; w < PL; ++w)
+        z[(static_cast<size_t>(w) * n + dst) * sp + sl] = words[w];
+    }
+  }
+}
+
+}  // namespace hb
+
+extern "C" int hb_randousha_extract(const void* cols, const void* band,
+                                    void* keep, void* z, int n, int sp,
+                                    int n_out, int n_outp, int tl, int wg,
+                                    const uint32_t* init, int bias,
+                                    void* stream) {
+  hb::FoldConst fc;
+  for (int j = 0; j < hb::NL; ++j) fc.init[j] = init[j];
+  fc.bias = bias;
+  const size_t smem = hb::band_smem_bytes(n, tl, wg, 0);
+  cudaError_t err = cudaFuncSetAttribute(
+      hb::randousha_extract_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long B = static_cast<long long>(n) * sp;
+  const unsigned grid = static_cast<unsigned>((B + tl - 1) / tl);
+  hb::randousha_extract_kernel<<<grid, tl * wg, smem,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(cols), static_cast<const int4*>(band),
+      static_cast<uint32_t*>(keep), static_cast<uint32_t*>(z), n, sp, n_out,
+      n_outp, tl, fc);
+  return static_cast<int>(cudaGetLastError());
+}

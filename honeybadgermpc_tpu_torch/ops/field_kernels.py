@@ -1,7 +1,12 @@
 """Field kernels of the port — counterpart of ``ops/pallas_field.py``.
 
 So far: the field sampler ``rand_limbs`` (the reference's
-``rand_limbs_pallas``). Element e draws Threefry-2x32-20 with counters
+``rand_limbs_pallas``) and the packed 4D finish arithmetic
+``mul_add_packed4`` / ``sub_bcast_packed4``; the elementwise multiply, the
+flat packed variants and the GF(p) matmul of that module are not ported
+yet.
+
+Sampler: element e draws Threefry-2x32-20 with counters
 (s, e), s = 0..5, taking the words of each call in the order
 w0.lo, w0.hi, w1.lo, w1.hi — 24 halfwords = 384 bits — and sends them
 through the 9-round ``redc384``; the canonical limbs are used directly as
@@ -10,6 +15,12 @@ same key data the output is bit-identical to the reference kernel's.
 
 On a CUDA device the sampler is the hand-written kernel
 ``csrc/rand_limbs.cu``; ``_rand_limbs_plain`` is its plain PyTorch version.
+
+Finish arithmetic: ``(a*b + c) mod p`` and ``(a - b) mod p`` on PACKED
+words in the extraction's native layout ``[PL, n, R, S]``, the two
+elementwise passes of the triple finish. On CUDA tensors they are the two
+kernels of ``csrc/packed_arith.cu``; the plain versions go through
+``unpack_limbs`` and ``ops/montgomery.py``.
 """
 
 from __future__ import annotations
@@ -17,14 +28,17 @@ from __future__ import annotations
 import torch
 
 from . import montgomery as mont
-from .fused_open import _launch_stream
+from .fused_open import PL, _launch_stream, pack_limbs, unpack_limbs
 from .limbs import L, MASK, W
 
 _TF_ROT_A = (13, 15, 26, 6)
 _TF_ROT_B = (17, 29, 16, 24)
 _M32 = 0xFFFFFFFF
 
-launches = 0      # times the CUDA kernel was launched (and nowhere else)
+# times each CUDA kernel was launched (counted there and nowhere else)
+launches = 0                # rand_limbs
+launches_mul_add4 = 0       # mul_add_packed4
+launches_sub_bcast4 = 0     # sub_bcast_packed4
 
 
 def _rotl(x, r):
@@ -79,6 +93,22 @@ def _rand_limbs_plain(key_data, numel: int, device):
     return mont._redc384_rows(rows).to(torch.int32)
 
 
+def _threefry_redc384(key_data, c0_base, c1):
+    """The sampler's draw at arbitrary counters: canonical limbs int64
+    [L, ...] of the 384-bit Threefry draw with counters (c0_base + s, c1),
+    s = 0..5, words in the sampler's order, through redc384. c0_base, c1:
+    int64 tensors of one shape holding uint32 values. The dealer draws and
+    the check-aggregation vector of ops/fused_randousha.py use it."""
+    k0, k1 = _key_ints(key_data)
+    rows = []
+    for s in range(6):
+        w0, w1 = _threefry2x32(k0, k1, (c0_base + s) & _M32, c1)
+        for wrd in (w0, w1):
+            rows.append(wrd & MASK)
+            rows.append(wrd >> W)
+    return mont._redc384_rows(rows)
+
+
 def _rand_limbs_cuda(key_data, numel: int, device):
     """Launch csrc/rand_limbs.cu: int32 [L, numel] on the CUDA `device`."""
     global launches
@@ -103,3 +133,119 @@ def rand_limbs(key_data, numel: int, device=torch.device("cuda")):
     if device.type == "cuda":
         return _rand_limbs_cuda(key_data, numel, device)
     return _rand_limbs_plain(key_data, numel, device)
+
+
+# ---------------------------------------------------------------------------
+# Packed finish arithmetic on the 4D layout [PL, n, R, S]
+# ---------------------------------------------------------------------------
+
+def _check_packed4(x, name: str):
+    if x.dtype != torch.int32 or x.dim() != 4 or x.shape[0] != PL:
+        raise ValueError(f"{name} must be int32 [{PL}, n, R, S], got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _mul_add_packed4_plain(a, b, c, chunk: int = 8):
+    """Plain PyTorch version of mul_add_packed4: [PL, n, R, S] each ->
+    [PL, n, R, S]. Works through the party axis `chunk` parties at a time
+    (the int64 carry-save accumulator is 17 words per element)."""
+    outs = []
+    for j in range(0, a.shape[1], chunk):
+        la, lb, lc = (unpack_limbs(x[:, j:j + chunk]) for x in (a, b, c))
+        outs.append(pack_limbs(mont.add_mod(mont.mont_mul(la, lb), lc)))
+    return torch.cat(outs, dim=1)
+
+
+def _mul_add_packed4_cuda(a, b, c, pad: int):
+    """Launch csrc/packed_arith.cu::mul_add_packed4_kernel. The output
+    buffer is [PL, n, R*S + pad]; only its tail is zeroed here, the kernel
+    writes the rest."""
+    global launches_mul_add4
+    from .._build import lib
+    _, n, R, S = a.shape
+    out = torch.empty((PL, n, R * S + pad), dtype=torch.int32,
+                      device=a.device)
+    if pad:
+        out[:, :, R * S:] = 0
+    rc = lib().hb_mul_add_packed4(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                                  out.data_ptr(), n * R * S, R * S,
+                                  R * S + pad, _launch_stream(a))
+    launches_mul_add4 += 1
+    if rc != 0:
+        raise RuntimeError(
+            f"mul_add_packed4 kernel launch failed: CUDA error {rc}")
+    return out
+
+
+def mul_add_packed4_flat(a, b, c, pad: int = 0):
+    """mul_add_packed4 with the result FLAT, int32 [PL, n, R*S + pad]:
+    `pad` zero columns (0 allowed) after each party's R*S values. The form
+    the degree-2t open of the triple finish wants (its column count must be
+    a multiple of 2t+1), produced without a concatenate pass over the
+    tensor."""
+    for x, name in ((a, "a"), (b, "b"), (c, "c")):
+        _check_packed4(x, name)
+    if not (a.shape == b.shape == c.shape) \
+            or not (a.device == b.device == c.device):
+        raise ValueError("a, b, c must share one shape and one device")
+    if a.is_cuda:
+        return _mul_add_packed4_cuda(a, b, c, pad)
+    _, n, R, S = a.shape
+    out = _mul_add_packed4_plain(a, b, c).reshape(PL, n, R * S)
+    if pad:
+        out = torch.cat([out, out.new_zeros((PL, n, pad))], dim=-1)
+    return out
+
+
+def mul_add_packed4(a, b, c):
+    """(a*b + c) mod p elementwise (Montgomery product) on PACKED words in
+    the extraction kernels' native layout int32 [PL, n, R, S] ->
+    [PL, n, R, S]."""
+    return mul_add_packed4_flat(a, b, c).reshape(a.shape)
+
+
+def _sub_bcast_packed4_plain(a, b, chunk: int = 8):
+    """Plain PyTorch version of sub_bcast_packed4: a [PL, R, S],
+    b [PL, n, R, S] -> [PL, n, R, S]."""
+    la = unpack_limbs(a)[:, None]
+    outs = [pack_limbs(mont.sub_mod(la, unpack_limbs(b[:, j:j + chunk])))
+            for j in range(0, b.shape[1], chunk)]
+    return torch.cat(outs, dim=1)
+
+
+def _sub_bcast_packed4_cuda(a, b):
+    """Launch csrc/packed_arith.cu::sub_bcast_packed4_kernel."""
+    global launches_sub_bcast4
+    from .._build import lib
+    _, n, R, S = b.shape
+    out = torch.empty_like(b)
+    rc = lib().hb_sub_bcast_packed4(a.data_ptr(), b.data_ptr(),
+                                    out.data_ptr(), n * R * S, R * S,
+                                    a.stride(0), _launch_stream(b))
+    launches_sub_bcast4 += 1
+    if rc != 0:
+        raise RuntimeError(
+            f"sub_bcast_packed4 kernel launch failed: CUDA error {rc}")
+    return out
+
+
+def sub_bcast_packed4(a, b):
+    """(a - b) mod p on PACKED words in the native 4D layout: the shared
+    minuend `a` int32 [PL, R, S] (one copy of an opened value) against
+    per-party `b` [PL, n, R, S] -> [PL, n, R, S]. The n-replicated minuend
+    never exists in memory. `a` may be a view whose word planes lie apart
+    (a prefix of a longer opened tensor): only its inner [R, S] block must
+    be dense."""
+    _check_packed4(b, "b")
+    _, n, R, S = b.shape
+    if a.dtype != torch.int32 or tuple(a.shape) != (PL, R, S) \
+            or a.device != b.device:
+        raise ValueError(f"a must be int32 [{PL}, {R}, {S}] on {b.device}, "
+                         f"got {a.dtype} {tuple(a.shape)} on {a.device}")
+    if (S > 1 and a.stride(2) != 1) or (R > 1 and a.stride(1) != S):
+        raise ValueError("the inner [R, S] block of a must be dense")
+    if b.is_cuda:
+        return _sub_bcast_packed4_cuda(a, b)
+    return _sub_bcast_packed4_plain(a, b)

@@ -27,6 +27,36 @@ def _vandermonde_int_rows(xs: tuple, k: int):
     return tuple(tuple(r) for r in rows)
 
 
+def _lagrange_int_rows(xs: tuple):
+    """Host-exact int rows of W[k, k] such that coeffs = ys @ W interpolates
+    through (xs, ys): W[j, i] = coefficient of X^i in the Lagrange basis
+    polynomial L_j(X)."""
+    k = len(xs)
+    # master polynomial A(X) = prod (X - x_j)
+    a = [1]
+    for x in xs:
+        nxt = [0] * (len(a) + 1)
+        for i, c in enumerate(a):
+            nxt[i] = (nxt[i] - c * x) % P
+            nxt[i + 1] = (nxt[i + 1] + c) % P
+        a = nxt
+    rows = []
+    for j, xj in enumerate(xs):
+        # N_j(X) = A(X) / (X - xj) by synthetic division
+        nj = [0] * k
+        carry = a[k]
+        for i in range(k - 1, -1, -1):
+            nj[i] = carry
+            carry = (a[i] + carry * xj) % P
+        denom = 1
+        for m_, xm in enumerate(xs):
+            if m_ != j:
+                denom = denom * (xj - xm) % P
+        dinv = pow(denom, P - 2, P)
+        rows.append([c * dinv % P for c in nj])
+    return rows
+
+
 def vandermonde_batch_evaluate(xs, coeffs: FpArray) -> FpArray:
     """Evaluate polynomials (coeffs[..., k], k = degree+1) at points xs:
     the band kernel on a CUDA tensor, its plain version on a CPU tensor.

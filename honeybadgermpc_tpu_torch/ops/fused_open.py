@@ -31,6 +31,7 @@ without branching:
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -137,6 +138,52 @@ def _lam_int(xs, x0):
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _encode_band_np(points: tuple, k: int):
+    """(band, n1): the folded int8 band [1, NBAL*n1, kcols] of the encode
+    matrix E[i][j] = points[j]^i (k coefficients -> shares at the n
+    points), n1 = round8(n). The first entry of `_bands_np`."""
+    n = len(points)
+    assert k <= KMAX, (k, "balanced scheme requires k <= 64")
+    kcols = -(-(k * NBAL) // 32) * 32
+    enc_mat = [[pow(int(points[j]), i, P) for j in range(n)]
+               for i in range(k)]
+    n1 = _round8(n)
+    return _pad_band(_folded_band_host(enc_mat, _BAL_ROUNDS, n1), kcols), n1
+
+
+@functools.lru_cache(maxsize=None)
+def _bands_np(points: tuple, k: int):
+    """Folded int8 bands of the three protocol matrices for a k-of-n
+    code + layout metadata, byte-identical to the reference's:
+    ((encode band, n1), (re-evaluate-then-interpolate band, n2),
+    (coefficients-then-validate band, n3), rounds, kcols)."""
+    from .fpmatmul import _lagrange_int_rows
+    n = len(points)
+    nv = n - k
+    enc = _encode_band_np(points, k)
+    rounds = _BAL_ROUNDS
+    kcols = -(-(k * NBAL) // 32) * 32
+    # [lam(points[k:]) | lam_0]: re-evaluation at the validation points
+    # first, interpolate-at-0 last.
+    xs = tuple(int(points[z]) % P for z in range(k))
+    cols = [_lam_int(xs, int(points[z]) % P) for z in range(k, n)]
+    cols.append(_lam_int(xs, 0))
+    r1_mat = [[col[j] for col in cols] for j in range(k)]
+    n2 = _round8(nv + 1)
+    # [Minv | lam(points[k:])]: coefficients then validation, k + nv
+    rows = _lagrange_int_rows(xs)
+    cols = [[rows[j][i] for j in range(k)] for i in range(k)]
+    for z in range(k, n):
+        cols.append(_lam_int(xs, int(points[z]) % P))
+    r2_mat = [[col[j] for col in cols] for j in range(k)]
+    n3 = _round8(k + nv)
+    return (enc,
+            (_pad_band(_folded_band_host(r1_mat, rounds, n2), kcols), n2),
+            (_pad_band(_folded_band_host(r2_mat, rounds, n3), kcols), n3),
+            rounds, kcols)
+
+
 def _kernel_band(band: np.ndarray, ncp: int, k: int) -> np.ndarray:
     """Re-lay a reference band [NBAL*ncp, >= NBAL*k] (row r*ncp + col,
     column s*k + kk) for the CUDA kernels: int32 [ncp, k, 2, 32, 4], the A
@@ -163,6 +210,26 @@ def _kernel_band(band: np.ndarray, ncp: int, k: int) -> np.ndarray:
     frag = b[r[:, :, :, None], :, sdig[None, :, :, :], :]
     frag = np.ascontiguousarray(frag.transpose(4, 5, 0, 1, 2, 3))
     return frag.view(np.int32).reshape(ncp, k, 2, 32, 4)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel_band_index(ncp: int, k: int, rowlen: int) -> np.ndarray:
+    """int64 [ncp, k, 2, 32, 4, 4]: for every byte of `_kernel_band`'s
+    output its position in a flat reference band [NBAL*ncp, rowlen]. The
+    permutation is a property of the layout alone, so a band that only
+    exists on the device (the per-run folded extraction band) is re-laid
+    there with one gather through this index. Found by sending the
+    positions themselves through `_kernel_band`, one base-256 digit at a
+    time."""
+    size = NBAL * ncp * rowlen
+    assert size <= 1 << 24, size
+    pos = np.arange(size, dtype=np.int64).reshape(NBAL * ncp, rowlen)
+    idx = np.zeros((ncp, k, 2, 32, 16), np.int64)
+    for d in range(3):
+        digit = ((pos >> (8 * d)) & 0xFF).astype(np.uint8).view(np.int8)
+        moved = _kernel_band(digit, ncp, k).view(np.uint8)
+        idx += moved.astype(np.int64) << (8 * d)
+    return idx.reshape(ncp, k, 2, 32, 4, 4)
 
 
 def _smem_plan(k: int):
@@ -246,6 +313,13 @@ def _balance_bytes(us):
         blocks.append((t - (ge << 8)).to(torch.int8))
         c = ge
     return torch.cat(blocks, dim=0)
+
+
+def _planes_of(limbs):
+    """Balanced planes from UNPACKED 16-bit limbs int64 [L, k, lanes] (the
+    deal's sampled coefficients never exist packed)."""
+    us = [(limbs[s // 2] >> (8 * (s % 2))) & 0xFF for s in range(NBAL)]
+    return _balance_bytes(us)
 
 
 def _planes_of_packed(words):

@@ -113,6 +113,27 @@ def test_open_degree_2t_shape():
     assert nerr.tolist() == [0] * n and opened_ints(sec) == secrets
 
 
+def test_open_k43_batch_off_the_tile_with_zero_tail():
+    """The triple finish's open, scaled down: n=64, k = 2t+1 = 43, a batch
+    that is a multiple of 43 but not of 128 (there 98,341 = 24*4096 + 37
+    columns), whose last columns are the zero sharings that pad it."""
+    n, t2, real, pad = 64, 42, 43 * 4 - 37, 37
+    secrets, packed = deal_packed(43, n, t2, real)
+    assert (real + pad) % 43 == 0 and (real + pad) % 128 != 0
+    padded = np.concatenate(
+        [packed, np.zeros((8, n, pad), np.uint32)], axis=-1)
+    run = _sim_reconstruct_packed_jit(n, t2, False, True, fallback=False,
+                                      replicate=False)
+    sec, nerr = run(from_reference_packed(padded, "cpu"))
+    assert tuple(sec.shape) == (8, real + pad)
+    assert nerr.tolist() == [0] * n
+    assert opened_ints(sec) == secrets + [0] * pad
+    bad = padded.copy()
+    bad[6, n - 2, real + 5] ^= 0x100          # a fault inside the zero tail
+    _, nerr2 = run(from_reference_packed(bad, "cpu"))
+    assert nerr2.tolist() == [0] * (n - 2) + [1, 0]
+
+
 def test_open_checks_its_input_and_unported_branches(honest):
     _, packed = honest
     good = from_reference_packed(packed, "cpu")

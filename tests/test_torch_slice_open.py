@@ -159,7 +159,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "import honeybadgermpc_tpu_torch._build\n"
             "import honeybadgermpc_tpu_torch.ops.band_matmul\n"
             "import honeybadgermpc_tpu_torch.ops.field_kernels\n"
+            "import honeybadgermpc_tpu_torch.ops.fused_randousha\n"
+            "import honeybadgermpc_tpu_torch.parallel.mesh\n"
             "import honeybadgermpc_tpu_torch.parallel.reconstruct\n"
+            "import honeybadgermpc_tpu_torch.runtime.offline\n"
             "import honeybadgermpc_tpu_torch.runtime.preprocessing\n"
             "bad = [m for m in set(sys.modules) - before if m == 'jax' or "
             "m.startswith('jax.') or m == 'jaxlib' or "
