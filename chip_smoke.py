@@ -2,8 +2,8 @@
 
     python3 chip_smoke.py            # full size; needs one CUDA card
 
-Drives the port's two main paths through the entry points a user calls,
-at n=64, t=21:
+Drives the port's main paths through the entry points a user calls, at
+n=64, t=21:
 
   * the open path — deal -> pack -> open (detect-only) -> check — in
     segments of 22*768 = 16896 sharings, 64 segments resident (about 2.2 GB
@@ -11,14 +11,19 @@ at n=64, t=21:
   * the offline path — verified Beaver triples from the fused RanSha /
     RanDouSha pipeline with the packed finish,
     ``sim_offline_jit("generate_triples_packed", 64, 21, 4096)``: 90,112
-    triples per call.
+    triples per call;
+  * the robust open — one 16896-sharing segment with the shares of 21
+    parties replaced: the two-phase ``sim_batch_reconstruct`` (detect-only
+    open, then the Gao redo over 2 x 49,152 decodes), ``batch_reconstruct``
+    with its Gao fallback, ``sim_open_direct_packed(robust=True)`` and
+    ``robust_open_single``.
 
 The first run builds the kernels from ``honeybadgermpc_tpu_torch/csrc``
 into ``honeybadgermpc_tpu_torch/build``.
 
 Phases, each printing one JSON line; any failure exits non-zero:
   1 device    a CUDA card must be present; prints its name and power limit
-  2 build     compile and load the seven kernels
+  2 build     compile and load the eleven kernels
   3 kernels   each kernel against its plain PyTorch version on the card,
               bit for bit, at small, unaligned and main-path shapes, with
               times and the computed bound
@@ -32,6 +37,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
               triple on the card, and for a sample in Python ints
   9 triple faults   a flipped word in a receive tensor flips ok
  10 triple timing   triples per second and device time per stage
+ 11 robust kernels    rows 9, 12, 13 and 15 of PERF.md (mont_mul,
+              fp_matmul_cios, mxu_fused2, mxu_redc) against their plain
+              versions on the card, bit for bit, at the robust open's
+              shapes, a Python-int sample each, times and bounds
+ 12 robust open       honest: nerr == 0 and no Gao launch; 21 faulty
+              parties: phase one sees them, the redo returns the honest
+              secrets with nerr == 768*21 at every party, the other three
+              entry points agree, no plain multiply or matmul ran on the
+              card; the redo's time and the device time of one Gao segment
 
 The last line of the output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -48,10 +62,14 @@ flop each), over the least number of instructions the function needs on
 kernel does both kinds of work (the sampler on the CUDA cores, the encode
 dot on the tensor cores); its operation time is the larger of the two. The
 packed finish functions are counted like the sampler; both come out bound
-by their bytes.
+by their bytes. So are the robust open's elementwise multiply and CIOS
+matmul (on 8 words of 32 bits) and the MXU epilogues (on the reference's
+16-bit carry-save limbs); the folded MXU kernel's int8 dot is counted as
+the scheme runs it (37 x 37 digit products per operand and output).
 """
 
 import argparse
+import itertools
 import json
 import os
 import shutil
@@ -70,11 +88,17 @@ from honeybadgermpc_tpu_torch.ops import field_kernels as fk  # noqa: E402
 from honeybadgermpc_tpu_torch.ops import fused_open_direct as fod  # noqa: E402
 from honeybadgermpc_tpu_torch.ops import fused_randousha as fr  # noqa: E402
 from honeybadgermpc_tpu_torch.ops import montgomery as mont  # noqa: E402
-from honeybadgermpc_tpu_torch.ops.fpmatmul import \
-    _vandermonde_int_rows  # noqa: E402
+from honeybadgermpc_tpu_torch.ops import mxu_matmul as mxu  # noqa: E402
+from honeybadgermpc_tpu_torch.ops.fparray import dev_const  # noqa: E402
+from honeybadgermpc_tpu_torch.ops.fpmatmul import (  # noqa: E402
+    _decode_validate_np, _lagrange_matrix_np, _matmul_kernel,
+    _vandermonde_int_rows)
 from honeybadgermpc_tpu_torch.ops.fused_open import (  # noqa: E402
     PL, _lam_int, pack_limbs, unpack_limbs)
 from honeybadgermpc_tpu_torch.ops.limbs import L, P, R_MOD_P  # noqa: E402
+from honeybadgermpc_tpu_torch.parallel import \
+    reconstruct as rec  # noqa: E402
+from honeybadgermpc_tpu_torch.parallel.mesh import SimBackend  # noqa: E402
 from honeybadgermpc_tpu_torch.parallel.reconstruct import \
     _sim_reconstruct_packed_jit  # noqa: E402
 from honeybadgermpc_tpu_torch.runtime.offline import \
@@ -123,7 +147,33 @@ KERNEL_COUNTERS = {
     "randousha_extract": (fr, "launches_extract"),
     "mul_add_packed4": (fk, "launches_mul_add4"),
     "sub_bcast_packed4": (fk, "launches_sub_bcast4"),
+    "mont_mul": (fk, "launches_mont_mul"),
+    "fp_matmul_cios": (fk, "launches_matmul"),
+    "mxu_fused2": (mxu, "launches_fused2"),
+    "mxu_redc": (mxu, "launches_redc"),
 }
+# plain versions run on CUDA tensors (module, counter): the card's paths
+# must leave them at 0; only the comparisons with the kernels move them
+PLAIN_COUNTERS = {
+    "mont_mul_plain": (mont, "plain_calls_on_cuda"),
+    "mxu_matmul_plain": (mxu, "plain_calls_on_cuda"),
+}
+# Least 32-bit integer instructions per Montgomery product on 8 words of 32
+# bits, counted as for MUL_ADD_OPS_PER_ELEMENT without its add: 8 x 8 x
+# (low, high half multiply-add) for the product and as many for the
+# reduction, 8 for m, 8 x 2 carries out, conditional subtract 8 + 8. A
+# modular add is 8 + 8 + 8.
+MONT_MUL_OPS = 2 * (8 * 8 * 2) + 8 + 16 + 16
+ADD_MOD_OPS = 24
+# Least integer instructions per output element of the MXU epilogues on
+# 16-bit carry-save limbs (the reference's own fold): each diagonal pair
+# costs an add and a shift, its three chunks 6 operations and 3 adds; a
+# REDC round is m (2) + 16 multiply-adds split into low and high halves
+# (48) + the shift (2); the carry chain 3 x 16; a conditional subtract
+# 3 x 16 + 16 selects.
+FOLD37_OPS_BASE = 19 * 11 + 48 + 2 * 64       # + 52 per REDC round
+REDC73_OPS = 37 * 11 + 17 * 52 + 48 + 64
+BAD_PARTIES = tuple(range(0, 3 * T, 3))     # 21 parties, both sides of k
 
 
 def say(phase, **rec):
@@ -194,13 +244,19 @@ def timed_once(fn):
 
 
 def reset_launches():
-    for mod, attr in KERNEL_COUNTERS.values():
+    for mod, attr in list(KERNEL_COUNTERS.values()) + \
+            list(PLAIN_COUNTERS.values()):
         setattr(mod, attr, 0)
 
 
 def read_launches():
     return {name: getattr(mod, attr)
             for name, (mod, attr) in KERNEL_COUNTERS.items()}
+
+
+def read_plain():
+    return {name: getattr(mod, attr)
+            for name, (mod, attr) in PLAIN_COUNTERS.items()}
 
 
 # -- bounds ------------------------------------------------------------------
@@ -668,7 +724,7 @@ def stage_times(fn, reps):
     from torch.profiler import ProfilerActivity, profile
     names = ("randousha_deal_kernel", "randousha_extract_kernel",
              "open_direct_kernel", "mul_add_packed4_kernel",
-             "sub_bcast_packed4_kernel")
+             "sub_bcast_packed4_kernel", "mont_mul_kernel")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for i in range(reps):
@@ -703,7 +759,8 @@ def phase_triples(dev, reps):
 
     check(bool(ok), "triple call: ok is false on an honest run")
     want = {"randousha_deal": 4, "randousha_extract": 4,
-            "mul_add_packed4": 1, "sub_bcast_packed4": 1, "open_direct": 5}
+            "mul_add_packed4": 1, "sub_bcast_packed4": 1, "open_direct": 5,
+            "mont_mul": 6}                 # two per folded_band
     for name, count in want.items():
         check(launches[name] == count,
               f"triple call launched {name} {launches[name]} times, "
@@ -785,6 +842,431 @@ def phase_triples(dev, reps):
                       "folded_bands_per_call": 3}
 
 
+# -- the robust open: four kernels against their plain versions -------------
+
+def mont_limbs_ints(limbs):
+    """int32 limbs [L, ...] on the card -> flat list of Python ints (the
+    Montgomery representatives)."""
+    x = limbs.reshape(L, -1).cpu().numpy().astype("int64")
+    return [sum(int(x[j, i]) << (16 * j) for j in range(L))
+            for i in range(x.shape[1])]
+
+
+def matmul_oracle(a, v, rows, cols):
+    """Python-int a @ v in Montgomery form at the given (row, column) pairs
+    of a[L, B, k] @ v[L, k, n]."""
+    k, n = v.shape[1], v.shape[2]
+    rinv = pow(R_MOD_P, P - 2, P)
+    vv = mont_limbs_ints(v)
+    out = []
+    for b, c in zip(rows, cols):
+        aa = mont_limbs_ints(a[:, b])
+        acc = sum(aa[j] * vv[j * n + c] for j in range(k))
+        out.append(acc * rinv % P)
+    return out
+
+
+def check_oracle(got, a, v, what):
+    """A sample of got [L, B, n] against matmul_oracle."""
+    B, n = got.shape[1], got.shape[2]
+    rows = [0, 1, B // 2, B - 1, B // 3]
+    cols = [0, n - 1, n // 2, 1, n // 3]
+    want = matmul_oracle(a, v, rows, cols)
+    have = [mont_limbs_ints(got[:, b, c])[0] for b, c in zip(rows, cols)]
+    check(have == want, f"{what}: kernel != Python-int oracle")
+
+
+def rand_field(dev, key, shape):
+    n = 1
+    for d in shape:
+        n *= d
+    return fk.rand_limbs(key, n, dev).reshape((L,) + tuple(shape))
+
+
+def mont_mul_bound(numel):
+    return bound(3 * 64 * numel, MONT_MUL_OPS * numel, INT32_OPS_PER_S)
+
+
+def cios_bound(b, k, n):
+    return bound(64 * (b * k + k * n + b * n),
+                 b * k * n * (MONT_MUL_OPS + ADD_MOD_OPS), INT32_OPS_PER_S)
+
+
+def fused2_bound(b, k, n, rounds):
+    """Reads a's limbs and the band, writes the limbs; the int8 dot of the
+    folded scheme (37 diagonals x 37 digits x k per output) on the tensor
+    cores and the fold on the CUDA cores, whichever is longer."""
+    npl = mxu.NPLANES
+    nbytes = 64 * b * k + n * npl * k * npl + 64 * b * n
+    dot_ms = 2 * b * n * npl * npl * k / INT8_OPS_PER_S * 1e3
+    fold_ms = (FOLD37_OPS_BASE + 52 * rounds) * b * n / INT32_OPS_PER_S * 1e3
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = max(dot_ms, fold_ms)
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def redc_bound(m):
+    return bound((73 * 4 + 64) * m, REDC73_OPS * m, INT32_OPS_PER_S)
+
+
+def phase_kernels_robust(dev):
+    """Rows 9, 12, 13 and 15 at the robust open's shapes, bit for bit
+    against their plain versions on the card, a Python-int sample each,
+    times and bounds."""
+    t0 = time.perf_counter()
+    pts = tuple(range(1, N + 1))
+    err, shapes, times = {}, [], {}
+
+    # row 9: the Gao EEA's [L, 2048, 65] and folded_band's [L, 42, 64]
+    for shape in ((2048, N + 1), (2 * T, N)):
+        a = rand_field(dev, (51, shape[0]), shape)
+        b = rand_field(dev, (52, shape[1]), shape)
+        got = fk.mont_mul_pallas(a, b)
+        want = mont._mont_mul_plain(a, b)
+        sync()
+        check(torch.equal(got, want), f"mont_mul != plain at {shape}")
+        for i in (0, 7, shape[1] * 3 + 1):
+            ai = mont_limbs_ints(a.reshape(L, -1)[:, i])[0]
+            bi = mont_limbs_ints(b.reshape(L, -1)[:, i])[0]
+            gi = mont_limbs_ints(got.reshape(L, -1)[:, i])[0]
+            check(gi == ai * bi * pow(R_MOD_P, P - 2, P) % P,
+                  f"mont_mul != Python ints at {shape}")
+        err["mont_mul"] = max(err.get("mont_mul", 0), max_abs_err(got, want))
+        shapes.append(f"mont_mul [L,{shape[0]},{shape[1]}]")
+    times["mont_mul_folded_band"] = (       # the last shape: [L, 42, 64]
+        kernel_ms(lambda: fk.mont_mul_pallas(a, b), 50, "mont_mul_kernel"),
+        timed_once(lambda: mont._mont_mul_plain(a, b)),
+        mont_mul_bound(a[0].numel()))
+    # three operand pairs (77 MB) in turn, so each launch finds its
+    # operands outside the 50 MB L2
+    pair_list = [(rand_field(dev, (53, i), (2048, N + 1)),
+                  rand_field(dev, (54, i), (2048, N + 1))) for i in range(3)]
+    a, b = pair_list[0]
+    pairs = itertools.cycle(pair_list)
+    times["mont_mul"] = (
+        kernel_ms(lambda: fk.mont_mul_pallas(*next(pairs)), 50,
+                  "mont_mul_kernel"),
+        timed_once(lambda: mont._mont_mul_plain(a, b)),
+        mont_mul_bound(a[0].numel()))
+
+    # row 15: Gao's interpolation from all 64 shares, one 2048 segment
+    a = rand_field(dev, (55, 1), (2048, N))
+    lag = dev_const(_lagrange_matrix_np, (pts,), dev)          # [L, 64, 64]
+    diag = mxu._mxu_diagonals(a, lag)
+    got = mxu._redc_cuda(diag)
+    want = mxu._redc_diagonals(diag)
+    sync()
+    check(torch.equal(got, want), "mxu_redc != plain at B=2048 k=64 n=64")
+    check_oracle(got.reshape(L, 2048, N), a, lag, "mxu_redc")
+    err["mxu_redc"] = max_abs_err(got, want)
+    shapes.append(f"mxu_redc B=2048 k={N} n={N} (M={2048 * N})")
+    ap = mxu._planes7(a).reshape(2048, N * mxu.NPLANES)
+    vband = mxu._build_vband(lag)
+    diags = itertools.cycle([diag, diag.roll(1, dims=1).contiguous()])
+    times["mxu_redc"] = (          # two diagonal sets (92 MB) in turn
+        kernel_ms(lambda: mxu._redc_cuda(next(diags)), 50,
+                  "mxu_redc_kernel"),
+        timed_once(lambda: mxu._redc_diagonals(diag)),
+        redc_bound(2048 * N))
+    int_mm_ms = time_ms(lambda: mxu._dot_s8(ap, vband), 20)
+
+    # row 13: decode_validate_matmul of the open's two rounds
+    big = N * C                       # the decodes of one round
+    for ncol, want_coeffs in ((N - K + 1, False), (N, True)):
+        w = dev_const(_decode_validate_np, (pts, K, want_coeffs), dev)
+        a = rand_field(dev, (56, ncol), (big, K))
+        r = mxu._rounds_for(K)
+        wd = mxu._folded_band_digits(w, r)
+        got = mxu._fused2_cuda(a, wd, r)
+        want = mxu._fused2_plain(a, wd, r)
+        sync()
+        check(torch.equal(got, want),
+              f"mxu_fused2 != plain at B={big} k={K} n={ncol}")
+        check_oracle(got, a, w, "mxu_fused2")
+        err["mxu_fused2"] = max(err.get("mxu_fused2", 0),
+                                max_abs_err(got, want))
+        shapes.append(f"mxu_fused2 B={big} k={K} n={ncol}")
+        key = "mxu_fused2" if ncol < N else f"mxu_fused2_n{N}"
+        times[key] = (
+            kernel_ms(lambda: mxu._fused2_cuda(a, wd, r), 20,
+                      "mxu_fused2_kernel"),
+            timed_once(lambda: mxu._fused2_plain(a, wd, r)),
+            fused2_bound(big, K, ncol, r))
+
+    # row 12: robust_open_single's decode at n=64
+    w = dev_const(_decode_validate_np, (pts, K, False), dev)      # [L,22,43]
+    a = rand_field(dev, (57, 1), (N, K))
+    got = fk.fp_matmul_pallas(a, w)
+    want = _matmul_kernel(a, w, mul=mont._mont_mul_plain)
+    sync()
+    check(torch.equal(got, want), f"fp_matmul_cios != plain at B={N} k={K}")
+    check_oracle(got, a, w, "fp_matmul_cios")
+    err["fp_matmul_cios"] = max_abs_err(got, want)
+    shapes.append(f"fp_matmul_cios B={N} k={K} n={N - K + 1}")
+    times["fp_matmul_cios"] = (
+        kernel_ms(lambda: fk.fp_matmul_pallas(a, w), 50,
+                  "fp_matmul_cios_kernel"),
+        timed_once(lambda: _matmul_kernel(a, w, mul=mont._mont_mul_plain)),
+        cios_bound(N, K, N - K + 1))
+    # small and unaligned shapes: odd batches, 2 REDC rounds (k > 27), the
+    # folded kernel's 32-lane plan (k = 64), unpadded dot sides
+    for shape in ((5,), (1500,)):
+        a, b = rand_field(dev, (58, 1), shape), rand_field(dev, (59, 1), shape)
+        check(torch.equal(fk.mont_mul_pallas(a, b),
+                          mont._mont_mul_plain(a, b)),
+              f"mont_mul != plain at {shape}")
+        shapes.append(f"mont_mul {shape}")
+    for bb, k, n in ((13, 5, 7), (1, 3, 1), (N, N, N)):
+        a, v = rand_field(dev, (60, bb), (bb, k)), rand_field(dev, (61, n),
+                                                               (k, n))
+        check(torch.equal(fk.fp_matmul_pallas(a, v),
+                          _matmul_kernel(a, v, mul=mont._mont_mul_plain)),
+              f"fp_matmul_cios != plain at {(bb, k, n)}")
+        shapes.append(f"fp_matmul_cios B={bb} k={k} n={n}")
+    for bb, k, n in ((130, 31, 8), (300, N, 8), (256, K, N)):
+        a, v = rand_field(dev, (62, bb), (bb, k)), rand_field(dev, (63, n),
+                                                               (k, n))
+        r = mxu._rounds_for(k)
+        wd = mxu._folded_band_digits(v, r)
+        got = mxu._fused2_cuda(a, wd, r)
+        check(torch.equal(got, mxu._fused2_plain(a, wd, r)),
+              f"mxu_fused2 != plain at {(bb, k, n)}")
+        check_oracle(got, a, v, "mxu_fused2")
+        shapes.append(f"mxu_fused2 B={bb} k={k} n={n}")
+    for bb, k, n in ((256, 9, 12), (1030, 3, 2)):
+        a, v = rand_field(dev, (64, bb), (bb, k)), rand_field(dev, (65, n),
+                                                               (k, n))
+        diag = mxu._mxu_diagonals(a, v)
+        got = mxu._redc_cuda(diag)
+        check(torch.equal(got, mxu._redc_diagonals(diag)),
+              f"mxu_redc != plain at {(bb, k, n)}")
+        check_oracle(got.reshape(L, bb, n), a, v, "mxu_redc")
+        shapes.append(f"mxu_redc B={bb} k={k} n={n}")
+    say("robust_kernels_vs_plain", ok=True, tolerance="exact (torch.equal)",
+        shapes=shapes, timed_by={k: v[0][1] for k, v in times.items()},
+        int_mm_dot_ms=int_mm_ms, seconds=round(time.perf_counter() - t0, 3))
+    return err, {k: (v[0][0], v[1], v[2]) for k, v in times.items()}, \
+        int_mm_ms
+
+
+def device_busy_ms(fn):
+    """Device time of one call of fn(), summed over every CUDA kernel the
+    profiler saw, and the number of kernel launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    us, count = 0.0, 0
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        us += getattr(ev, "device_time_total",
+                      getattr(ev, "cuda_time_total", 0.0))
+        count += ev.count
+    return us / 1e3, count
+
+
+def phase_robust_open(dev):
+    """One 16896-sharing segment dealt by the port's dealer, opened honestly
+    and then with 21 parties' shares replaced (parties on both sides of k):
+    the two-phase sim_batch_reconstruct, batch_reconstruct with its Gao
+    fallback, sim_open_direct_packed(robust=True), robust_open_single."""
+    pre = PreProcessedElements(N, T, seed=77, device=dev)
+    pre.generate_rands(SEG)
+    shares = pre.get_rands(SEG)                           # [n, SEG]
+    sync()
+    reset_launches()
+
+    # (a) honest: phase one only
+    sec_a, nerr_a = rec.sim_batch_reconstruct(shares, N, T)
+    sync()
+    la = read_launches()
+    check(int(nerr_a.sum()) == 0, "honest robust open: nerr != 0")
+    check(la["mxu_redc"] == 0 and la["mont_mul"] == 0
+          and la["mxu_fused2"] == 0 and la["fp_matmul_cios"] == 0,
+          f"an honest open must launch no Gao: {la}")
+    check(la["open_direct"] == 1, "honest open: one direct-open launch")
+    check(tuple(sec_a.shape) == (N, SEG), "opened shapes")
+    check(bool((sec_a.limbs == sec_a.limbs[:, :1]).all()),
+          "every party must open the same secrets")
+    oracle_check(pack_limbs(shares.limbs), pack_limbs(sec_a.limbs[:, 0]),
+                 [0, 1, C, SEG // 2, SEG - 1])
+
+    # (b) 21 faulty parties: phase one sees them, the redo corrects them
+    faulty = rec.inject_share_faults(shares, SimBackend(N).my_ids(dev),
+                                     BAD_PARTIES, (2026, 3))
+    check(not torch.equal(faulty.limbs[:, 0], shares.limbs[:, 0])
+          and torch.equal(faulty.limbs[:, 1], shares.limbs[:, 1]),
+          "fault injection hit the wrong parties")
+    _, nerr_p1 = rec._sim_reconstruct_jit(N, T, False, True, fallback=False)(
+        faulty.limbs)
+    check(int(nerr_p1.sum()) > 0, "phase one did not see the faults")
+    sync()
+    reset_launches()
+    t0 = time.perf_counter()
+    sec_b, nerr_b = rec.sim_batch_reconstruct(faulty, N, T)
+    sync()
+    redo_s = time.perf_counter() - t0
+    lb = read_launches()
+    want_nerr = C * len(BAD_PARTIES)
+    check(torch.equal(sec_b.limbs, sec_a.limbs),
+          "robust open: secrets differ from the honest open")
+    check(nerr_b.tolist() == [want_nerr] * N,
+          f"robust open: nerr {nerr_b.tolist()[:4]}..., want {want_nerr}")
+    check(lb["mxu_redc"] > 0 and lb["mont_mul"] > 0,
+          f"the redo did not go through Gao on the kernels: {lb}")
+
+    # (c) the generic program and the direct open's robust branch
+    t0 = time.perf_counter()
+    sec_c, nerr_c = rec.batch_reconstruct(SimBackend(N), faulty, N, T)
+    sync()
+    br_s = time.perf_counter() - t0
+    check(torch.equal(sec_c.limbs, sec_a.limbs)
+          and nerr_c.tolist() == [want_nerr] * N,
+          "batch_reconstruct disagrees with the robust open")
+    pts = tuple(range(1, N + 1))
+    sec_d, nerr_d = fod.sim_open_direct_packed(pack_limbs(faulty.limbs), N,
+                                               T, pts, robust=True)
+    sync()
+    check(torch.equal(sec_d, pack_limbs(sec_a.limbs))
+          and nerr_d.tolist() == [want_nerr] * N,
+          "sim_open_direct_packed(robust=True) disagrees")
+
+    # (d) one secret's 64 scalar shares, 21 of them wrong
+    vals, errs = rec.robust_open_single(SimBackend(N), faulty[:, 0], N, T)
+    sync()
+    check(torch.equal(vals.limbs, sec_a.limbs[:, :, 0])
+          and errs.tolist() == [len(BAD_PARTIES)] * N,
+          f"robust_open_single: errs {errs.tolist()[:4]}...")
+    launches = read_launches()
+    plain = read_plain()
+    check(all(v == 0 for v in plain.values()),
+          f"plain versions ran on the card: {plain}")
+    for name in ("mont_mul", "fp_matmul_cios", "mxu_fused2", "mxu_redc"):
+        check(launches[name] > 0, f"the robust open never launched {name}")
+
+    # the redo's time: one Gao segment and the encode, on the device
+    recv = rec._redo_encode_jit(N, False, K)(faulty.limbs.contiguous())
+    seg = recv.reshape(L, N * C, N)[:, :rec._REDO_SEG].contiguous()
+    gao = rec._redo_gao_jit(N, False, K)
+    gao(seg)
+    sync()
+    t0 = time.perf_counter()
+    gao(seg)
+    sync()
+    gao_seg_ms = (time.perf_counter() - t0) * 1e3
+    seg_busy_ms, seg_kernels = device_busy_ms(lambda: gao(seg))
+    enc_busy_ms, _ = device_busy_ms(
+        lambda: rec._redo_encode_jit(N, False, K)(faulty.limbs.contiguous()))
+    nseg = 2 * (-(-N * C // rec._REDO_SEG))
+    say("robust_open", ok=True, n=N, t=T, sharings=SEG,
+        bad_parties=len(BAD_PARTIES), nerr_per_party=want_nerr,
+        launches_honest=la, launches_redo=lb,
+        launches_all=launches, plain_calls_on_card=plain,
+        batch_reconstruct_ms=br_s * 1e3)
+    return launches, {
+        "redo_ms_per_segment": redo_s * 1e3,
+        "redo_sharings_per_s": SEG / redo_s,
+        "gao_segments_per_redo": nseg, "gao_segment_instances":
+        rec._REDO_SEG, "gao_segment_ms": gao_seg_ms,
+        "gao_segment_device_busy_ms": seg_busy_ms,
+        "gao_segment_kernel_launches": seg_kernels,
+        "encode_device_busy_ms": enc_busy_ms,
+        "device_busy_ms_per_redo": enc_busy_ms + nseg * seg_busy_ms,
+        "device_busy_per_redo_from": "encode + segments x one segment",
+        "launches_per_redo": lb,
+        "batch_reconstruct_ms": br_s * 1e3}
+
+
+def kernels_line(times, err, launches, launches_triples, launches_robust,
+                 int_mm_ms):
+    """The rows of the `kernels` JSON line, one per kernel: its source, the
+    TPU kernel it replaces, launches on its path, times and bound."""
+    meta = {
+        "open_direct": ("honeybadgermpc_tpu_torch/csrc/open_direct.cu",
+                        "honeybadgermpc_tpu/ops/fused_open_direct.py:202",
+                        f"n={N} k={K} B={SEG}"),
+        "rand_limbs": ("honeybadgermpc_tpu_torch/csrc/rand_limbs.cu",
+                       "honeybadgermpc_tpu/ops/pallas_field.py:452",
+                       f"numel={SEG * T}"),
+        "band_matmul": ("honeybadgermpc_tpu_torch/csrc/band_matmul.cu",
+                        "honeybadgermpc_tpu/ops/band_matmul.py:76",
+                        f"B={SEG} k={K} m={N}"),
+        "randousha_deal": (
+            "honeybadgermpc_tpu_torch/csrc/randousha_deal.cu",
+            "honeybadgermpc_tpu/ops/fused_randousha.py:293",
+            f"n={N} degree t={T} (k={K}) sp={KT}"),
+        "randousha_extract": (
+            "honeybadgermpc_tpu_torch/csrc/randousha_extract.cu",
+            "honeybadgermpc_tpu/ops/fused_randousha.py:367",
+            f"n={N} n_out={N_OUT} (+1 check column) sp={KT}"),
+        "mul_add_packed4": (
+            "honeybadgermpc_tpu_torch/csrc/packed_arith.cu",
+            "honeybadgermpc_tpu/ops/pallas_field.py:244",
+            f"[{PL},{N},{N_OUTP},{KT}]"),
+        "sub_bcast_packed4": (
+            "honeybadgermpc_tpu_torch/csrc/packed_arith.cu",
+            "honeybadgermpc_tpu/ops/pallas_field.py:308",
+            f"[{PL},{N_OUTP},{KT}] - [{PL},{N},{N_OUTP},{KT}]"),
+        "mont_mul": (
+            "honeybadgermpc_tpu_torch/csrc/mont_mul.cu",
+            "honeybadgermpc_tpu/ops/pallas_field.py:127",
+            f"[{L},2048,{N + 1}] (a Gao EEA step)"),
+        "fp_matmul_cios": (
+            "honeybadgermpc_tpu_torch/csrc/fp_matmul_cios.cu",
+            "honeybadgermpc_tpu/ops/pallas_field.py:529",
+            f"B={N} k={K} n={N - K + 1}"),
+        "mxu_fused2": (
+            "honeybadgermpc_tpu_torch/csrc/mxu_fused2.cu",
+            "honeybadgermpc_tpu/ops/mxu_matmul.py:453",
+            f"B={N * C} k={K} n={N - K + 1}"),
+        "mxu_redc": (
+            "honeybadgermpc_tpu_torch/csrc/mxu_redc.cu",
+            "honeybadgermpc_tpu/ops/mxu_matmul.py:547",
+            f"M=2048*{N} (B=2048 k={N} n={N})"),
+    }
+    # extra shapes timed beside a kernel's main one
+    extra = {"randousha_deal": ("randousha_deal_2t", f"k={2 * T + 1}"),
+             "mont_mul": ("mont_mul_folded_band", f"[{L},{2 * T},{N}]"),
+             "mxu_fused2": (f"mxu_fused2_n{N}", f"B={N * C} k={K} n={N}")}
+    robust_path = ("mont_mul", "fp_matmul_cios", "mxu_fused2", "mxu_redc")
+    kernels = []
+    for name, (source, replaces, shape) in meta.items():
+        ms, plain_ms, (bound_ms, bound_by) = times[name]
+        # launches: from the run of the path the kernel belongs to (the
+        # open path for the first three, the triple call for the next four,
+        # the robust open for the last four); the open kernel serves all
+        if name in robust_path:
+            count = launches_robust[name]
+        elif launches[name] > 0:
+            count = launches[name]
+        else:
+            count = launches_triples[name]
+        row = {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": count,
+            "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+            "shape": shape, "share_of_bound": bound_ms / ms}
+        if name in ("open_direct", "mont_mul"):
+            row["launches_triple_call"] = launches_triples[name]
+        if name == "open_direct":
+            row["launches_robust_open"] = launches_robust[name]
+        if name == "mxu_redc":      # its dot, outside the kernel
+            row["dot_int_mm_ms"] = int_mm_ms
+        if name in extra:
+            key, shape2 = extra[name]
+            ms2, plain2, (bound2, by2) = times[key]
+            row["second_shape"] = {"ms": ms2, "plain_ms": plain2,
+                                   "bound_ms": bound2, "bound_by": by2,
+                                   "shape": shape2}
+        kernels.append(row)
+    return kernels
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--nseg", type=int, default=64,
@@ -823,57 +1305,16 @@ def main():
     times.update(times2)
     launches_triples, trip = phase_triples(dev, args.reps)
     say("triple_timing", card=card, **trip)
+    torch.cuda.empty_cache()
 
-    meta = {
-        "open_direct": ("honeybadgermpc_tpu_torch/csrc/open_direct.cu",
-                        "honeybadgermpc_tpu/ops/fused_open_direct.py:202",
-                        f"n={N} k={K} B={SEG}"),
-        "rand_limbs": ("honeybadgermpc_tpu_torch/csrc/rand_limbs.cu",
-                       "honeybadgermpc_tpu/ops/pallas_field.py:452",
-                       f"numel={SEG * T}"),
-        "band_matmul": ("honeybadgermpc_tpu_torch/csrc/band_matmul.cu",
-                        "honeybadgermpc_tpu/ops/band_matmul.py:76",
-                        f"B={SEG} k={K} m={N}"),
-        "randousha_deal": (
-            "honeybadgermpc_tpu_torch/csrc/randousha_deal.cu",
-            "honeybadgermpc_tpu/ops/fused_randousha.py:293",
-            f"n={N} degree t={T} (k={K}) sp={KT}"),
-        "randousha_extract": (
-            "honeybadgermpc_tpu_torch/csrc/randousha_extract.cu",
-            "honeybadgermpc_tpu/ops/fused_randousha.py:367",
-            f"n={N} n_out={N_OUT} (+1 check column) sp={KT}"),
-        "mul_add_packed4": (
-            "honeybadgermpc_tpu_torch/csrc/packed_arith.cu",
-            "honeybadgermpc_tpu/ops/pallas_field.py:244",
-            f"[{PL},{N},{N_OUTP},{KT}]"),
-        "sub_bcast_packed4": (
-            "honeybadgermpc_tpu_torch/csrc/packed_arith.cu",
-            "honeybadgermpc_tpu/ops/pallas_field.py:308",
-            f"[{PL},{N_OUTP},{KT}] - [{PL},{N},{N_OUTP},{KT}]"),
-    }
-    kernels = []
-    for name, (source, replaces, shape) in meta.items():
-        ms, plain_ms, (bound_ms, bound_by) = times[name]
-        # launches: from the run of the path the kernel belongs to (the
-        # open path for the first three, the triple call for the rest);
-        # the open kernel serves both
-        on_open_path = launches[name] > 0
-        rec = {
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "launches": (launches if on_open_path
-                         else launches_triples)[name],
-            "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "shape": shape, "share_of_bound": bound_ms / ms}
-        if name == "open_direct":
-            rec["launches_triple_call"] = launches_triples[name]
-        if name == "randousha_deal":          # its second shape: degree 2t
-            ms2, plain2, (bound2, by2) = times["randousha_deal_2t"]
-            rec["degree_2t"] = {"ms": ms2, "plain_ms": plain2,
-                                "bound_ms": bound2, "bound_by": by2,
-                                "shape": f"k={2 * T + 1}"}
-        kernels.append(rec)
+    err3, times3, int_mm_ms = phase_kernels_robust(dev)
+    err.update(err3)
+    times.update(times3)
+    launches_robust, robust = phase_robust_open(dev)
+    say("robust_timing", card=card, **robust)
+
+    kernels = kernels_line(times, err, launches, launches_triples,
+                           launches_robust, int_mm_ms)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -108,9 +108,16 @@ def _declare(lib):
                                          i32, i32, init, i32, vp]
     lib.hb_mul_add_packed4.argtypes = [vp, vp, vp, vp, i64, i64, i64, vp]
     lib.hb_sub_bcast_packed4.argtypes = [vp, vp, vp, i64, i64, i64, vp]
+    lib.hb_mont_mul.argtypes = [vp, vp, vp, i64, vp]
+    lib.hb_fp_matmul_cios.argtypes = [vp, vp, vp, i32, i32, i32, vp]
+    lib.hb_mxu_fused2.argtypes = [vp, vp, vp, i64, i32, i32, i32, i32, i32,
+                                  vp]
+    lib.hb_mxu_redc.argtypes = [vp, vp, i64, vp]
     for fn in (lib.hb_open_direct, lib.hb_band_matmul, lib.hb_rand_limbs,
                lib.hb_randousha_deal, lib.hb_randousha_extract,
-               lib.hb_mul_add_packed4, lib.hb_sub_bcast_packed4):
+               lib.hb_mul_add_packed4, lib.hb_sub_bcast_packed4,
+               lib.hb_mont_mul, lib.hb_fp_matmul_cios, lib.hb_mxu_fused2,
+               lib.hb_mxu_redc):
         fn.restype = ctypes.c_int
 
 

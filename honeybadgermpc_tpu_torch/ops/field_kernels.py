@@ -1,10 +1,10 @@
 """Field kernels of the port — counterpart of ``ops/pallas_field.py``.
 
 So far: the field sampler ``rand_limbs`` (the reference's
-``rand_limbs_pallas``) and the packed 4D finish arithmetic
-``mul_add_packed4`` / ``sub_bcast_packed4``; the elementwise multiply, the
-flat packed variants and the GF(p) matmul of that module are not ported
-yet.
+``rand_limbs_pallas``), the packed 4D finish arithmetic
+``mul_add_packed4`` / ``sub_bcast_packed4``, the elementwise Montgomery
+multiply ``mont_mul_pallas`` and the CIOS matmul ``fp_matmul_pallas``; the
+flat packed variants of that module are not ported yet.
 
 Sampler: element e draws Threefry-2x32-20 with counters
 (s, e), s = 0..5, taking the words of each call in the order
@@ -21,6 +21,13 @@ words in the extraction's native layout ``[PL, n, R, S]``, the two
 elementwise passes of the triple finish. On CUDA tensors they are the two
 kernels of ``csrc/packed_arith.cu``; the plain versions go through
 ``unpack_limbs`` and ``ops/montgomery.py``.
+
+Elementwise multiply and CIOS matmul: ``mont_mul_pallas`` (the kernel
+behind ``montgomery.mont_mul`` on a CUDA tensor, ``csrc/mont_mul.cu``) and
+``fp_matmul_pallas`` (``csrc/fp_matmul_cios.cu``, the route of
+``fpmatmul.fp_matmul`` for batches below 1024 elements). Their plain
+versions are ``montgomery._mont_mul_plain`` and the scan
+``fpmatmul._matmul_kernel`` over it.
 """
 
 from __future__ import annotations
@@ -39,6 +46,8 @@ _M32 = 0xFFFFFFFF
 launches = 0                # rand_limbs
 launches_mul_add4 = 0       # mul_add_packed4
 launches_sub_bcast4 = 0     # sub_bcast_packed4
+launches_mont_mul = 0       # mont_mul_pallas
+launches_matmul = 0         # fp_matmul_pallas
 
 
 def _rotl(x, r):
@@ -154,7 +163,8 @@ def _mul_add_packed4_plain(a, b, c, chunk: int = 8):
     outs = []
     for j in range(0, a.shape[1], chunk):
         la, lb, lc = (unpack_limbs(x[:, j:j + chunk]) for x in (a, b, c))
-        outs.append(pack_limbs(mont.add_mod(mont.mont_mul(la, lb), lc)))
+        outs.append(pack_limbs(mont.add_mod(mont._mont_mul_plain(la, lb),
+                                             lc)))
     return torch.cat(outs, dim=1)
 
 
@@ -249,3 +259,72 @@ def sub_bcast_packed4(a, b):
     if b.is_cuda:
         return _sub_bcast_packed4_cuda(a, b)
     return _sub_bcast_packed4_plain(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Elementwise Montgomery multiply and the CIOS matmul
+# ---------------------------------------------------------------------------
+
+def _check_limbs(x, name: str):
+    if x.dtype != torch.int32 or x.dim() < 1 or x.shape[0] != L:
+        raise ValueError(f"{name} must be int32 [{L}, ...], got "
+                         f"{x.dtype} {tuple(x.shape)}")
+
+
+def mont_mul_pallas(a, b):
+    """Elementwise a*b*R^-1 mod p of limb tensors int32 [L, *shape] of one
+    shape (broadcasting is the caller's): csrc/mont_mul.cu on a CUDA
+    tensor, the plain version on a CPU tensor."""
+    global launches_mont_mul
+    _check_limbs(a, "a")
+    _check_limbs(b, "b")
+    if a.shape != b.shape or a.device != b.device:
+        raise ValueError(f"a {tuple(a.shape)} on {a.device} and b "
+                         f"{tuple(b.shape)} on {b.device} must match")
+    if not a.is_cuda:
+        return mont._mont_mul_plain(a, b)
+    from .._build import lib
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty_like(a)
+    numel = a[0].numel()
+    if numel == 0:
+        return out
+    rc = lib().hb_mont_mul(a.data_ptr(), b.data_ptr(), out.data_ptr(), numel,
+                           _launch_stream(a))
+    launches_mont_mul += 1
+    if rc != 0:
+        raise RuntimeError(f"mont_mul kernel launch failed: CUDA error {rc}")
+    return out
+
+
+def fp_matmul_pallas(a, v):
+    """a[L, B, k] @ v[L, k, n] -> [L, B, n] over GF(p), Montgomery form,
+    one CIOS product per term with modular k-accumulation:
+    csrc/fp_matmul_cios.cu on a CUDA tensor, the plain scan on a CPU
+    tensor."""
+    global launches_matmul
+    _check_limbs(a, "a")
+    _check_limbs(v, "v")
+    if a.dim() != 3 or v.dim() != 3 or a.shape[2] != v.shape[1] \
+            or a.device != v.device:
+        raise ValueError(f"need a [L, B, k] and v [L, k, n] on one device, "
+                         f"got {tuple(a.shape)}, {tuple(v.shape)}")
+    if not a.is_cuda:
+        from .fpmatmul import _matmul_kernel
+        return _matmul_kernel(a, v, mul=mont._mont_mul_plain)
+    from .._build import lib
+    _, B, k = a.shape
+    n = v.shape[2]
+    if B > 4 * 65535:
+        raise ValueError(f"batch {B} exceeds the kernel's grid")
+    out = torch.empty((L, B, n), dtype=torch.int32, device=a.device)
+    if B * n == 0:
+        return out
+    a, v = a.contiguous(), v.contiguous()
+    rc = lib().hb_fp_matmul_cios(a.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                 B, k, n, _launch_stream(a))
+    launches_matmul += 1
+    if rc != 0:
+        raise RuntimeError(
+            f"fp_matmul_cios kernel launch failed: CUDA error {rc}")
+    return out

@@ -10,6 +10,8 @@ no jitted entry points.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import numpy as np
 import torch
 
@@ -31,6 +33,14 @@ def _to_tensor(host_u32: np.ndarray, device):
     return torch.from_numpy(
         np.ascontiguousarray(host_u32, dtype=np.uint32).view(np.int32)
     ).to(torch.device(device))
+
+
+@lru_cache(maxsize=None)
+def dev_const(builder, args: tuple, device):
+    """Device copy of the host constant ``builder(*args)`` (a host-cached
+    np.uint32 limb array), cached per (builder, args, device): constants
+    go to each device once."""
+    return _to_tensor(builder(*args), device)
 
 
 class FpArray:
@@ -63,6 +73,10 @@ class FpArray:
     @classmethod
     def zeros(cls, shape=(), device=_CUDA):
         return cls.from_int(0, shape, device)
+
+    @classmethod
+    def ones(cls, shape=(), device=_CUDA):
+        return cls.from_int(1, shape, device)
 
     @classmethod
     def rand(cls, key_data, shape=(), device=_CUDA):
@@ -113,6 +127,31 @@ class FpArray:
             axes = tuple(reversed(range(self.ndim)))
         return FpArray(self.limbs.permute((0,) + tuple(a + 1 for a in axes)))
 
+    def __getitem__(self, idx):
+        if not isinstance(idx, tuple):
+            idx = (idx,)
+        return FpArray(self.limbs[(slice(None),) + idx])
+
+    def at_set(self, idx, value: "FpArray"):
+        """A copy with the elements at `idx` replaced by `value`."""
+        if not isinstance(idx, tuple):
+            idx = (idx,)
+        limbs = self.limbs.clone()
+        limbs[(slice(None),) + idx] = value.limbs
+        return FpArray(limbs)
+
+    def broadcast_to(self, shape):
+        shape = tuple(shape)
+        limbs = self.limbs
+        if self.ndim < len(shape):
+            limbs = limbs.reshape(
+                (L,) + (1,) * (len(shape) - self.ndim) + self.shape)
+        return FpArray(limbs.expand((L,) + shape))
+
+    def take(self, indices, axis=0):
+        idx = torch.as_tensor(indices, dtype=torch.int64, device=self.device)
+        return FpArray(self.limbs.index_select(axis + 1, idx))
+
     @staticmethod
     def concatenate(arrays, axis=0):
         return FpArray(torch.cat([a.limbs for a in arrays], dim=axis + 1))
@@ -156,6 +195,26 @@ class FpArray:
         return FpArray(mont.mont_mul(self.limbs, o.limbs))
 
     __rmul__ = __mul__
+
+    def __neg__(self):
+        return FpArray(mont.neg_mod(self.limbs))
+
+    def inv(self):
+        """Elementwise inverse (Fermat; inv(0) = 0)."""
+        return FpArray(mont.inv_mod(self.limbs))
+
+    # -- predicates --------------------------------------------------------
+    def is_zero(self):
+        return mont.is_zero_mask(self.limbs)
+
+    def eq(self, other):
+        o = self._coerce(other)
+        return mont.eq_mask(self.limbs, o.limbs)
+
+    @staticmethod
+    def select(mask, a: "FpArray", b: "FpArray"):
+        """where(mask, a, b) — mask broadcasts over the element shape."""
+        return FpArray(mont.select(mask, a.limbs, b.limbs))
 
     def __repr__(self):
         return f"FpArray(shape={self.shape}, device={self.device})"

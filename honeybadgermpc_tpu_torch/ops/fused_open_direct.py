@@ -32,7 +32,9 @@ import torch
 from .fused_open import (NBAL, PL, _BAL_ROUNDS, _bal_bias, _bal_fold_init,
                          _band_dot_fold, _fold_consts, _folded_band_host,
                          _kernel_band, _lam_int, _launch_stream, _pack16,
-                         _planes_of_packed, _smem_plan)
+                         _planes_of_packed, _smem_plan, pack_limbs,
+                         unpack_limbs)
+from .fparray import FpArray
 from .limbs import P
 
 ZG = 8            # output columns per band group (the reference's layout)
@@ -170,12 +172,10 @@ def sim_open_direct_packed(packed, n: int, t: int, points: tuple,
     opened values are identical by construction.
 
     robust=False (detect-only): callers rerun robustly when sum(nerr) > 0.
-    robust=True (the reference's in-graph Gao fallback) belongs to the
-    robust-decoding part of the port and is not available yet."""
-    if robust:
-        raise NotImplementedError(
-            "robust=True needs robust decoding (the Gao fallback), "
-            "which is not ported yet; use the detect-only open")
+    robust=True (with replicate=True): when any mismatch is seen, the whole
+    open is redone by the generic two-round program with its Gao fallback
+    (parallel/reconstruct.py::batch_reconstruct), whose secrets and
+    per-destination error counts are returned instead."""
     k = t + 1
     if packed.dtype != torch.int32 or packed.dim() != 3 \
             or packed.shape[0] != PL or packed.shape[1] != n:
@@ -199,4 +199,12 @@ def sim_open_direct_packed(packed, n: int, t: int, points: tuple,
         sec, nerr = _open_direct_plain(packed, n, k, points)
     if not replicate:
         return sec, nerr
-    return sec[:, None, :].expand(PL, n, B), nerr
+    secrets = sec[:, None, :].expand(PL, n, B)
+    if robust and int(nerr.sum()) != 0:
+        from ..parallel.mesh import SimBackend
+        from ..parallel.reconstruct import batch_reconstruct
+        sec2, nerr = batch_reconstruct(SimBackend(n),
+                                       FpArray(unpack_limbs(packed)), n, t,
+                                       robust=True)
+        secrets = pack_limbs(sec2.limbs)
+    return secrets, nerr

@@ -8,7 +8,10 @@ canonical residue the reference produces, word for word.
 
 The multiplier is the same carry-save CIOS: each outer step does whole
 limb-vector ops and keeps the accumulator in redundant form, with a single
-carry normalization at the end.
+carry normalization at the end. ``mont_mul`` on a CUDA tensor launches the
+hand-written elementwise kernel (ops/field_kernels.py::mont_mul_pallas,
+csrc/mont_mul.cu) at every size; ``_mont_mul_plain`` is its plain version
+and serves CPU tensors.
 """
 
 from __future__ import annotations
@@ -16,9 +19,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .limbs import L, MASK, N0, P_LIMBS, R2_MOD_P_LIMBS, W, int_to_limbs
+from .limbs import (L, MASK, N0, P, P_LIMBS, R2_MOD_P_LIMBS, R_MOD_P_LIMBS,
+                    W, int_to_limbs)
 
 _P = [int(x) for x in P_LIMBS]
+
+# times the plain multiply ran on CUDA tensors: the card's paths must keep
+# this at 0 (only a comparison against the kernel may move it)
+plain_calls_on_cuda = 0
 
 
 def _bshape(a):
@@ -98,14 +106,30 @@ def sub_mod(a, b):
 
 
 def mont_mul(a, b):
-    """a*b*R^{-1} mod p, canonical output (< p). a, b: canonical int32[L,...].
+    """a*b*R^{-1} mod p, canonical output (< p). a, b: canonical int32[L,...]
+    broadcasting by their element shapes. On a CUDA tensor: the row-9
+    kernel (operands materialized at the broadcast shape); on a CPU tensor:
+    the plain version."""
+    a, b = _align2(a, b)
+    if a.is_cuda:
+        from .field_kernels import mont_mul_pallas
+        shape = (L,) + torch.broadcast_shapes(_bshape(a), _bshape(b))
+        return mont_mul_pallas(a.expand(shape), b.expand(shape))
+    return _mont_mul_plain(a, b)
+
+
+def _mont_mul_plain(a, b):
+    """Plain PyTorch version of mont_mul: canonical int32[L,...] a, b.
 
     Redundant accumulator t: [L+1, ...]; per outer step limb j gains at
     most four 16-bit terms plus the limb-0 carry re-injection, so every
     limb stays < 2^23 — the reference's uint32 bound; in int64 there is
     ample room. m is derived from t[0] mod 2^16, which is exact in
     carry-save form."""
+    global plain_calls_on_cuda
     a, b = _align2(a, b)
+    if a.is_cuda:
+        plain_calls_on_cuda += 1
     shape = torch.broadcast_shapes(_bshape(a), _bshape(b))
     a64 = a.to(torch.int64)
     b64 = b.to(torch.int64).expand((L,) + shape)
@@ -178,3 +202,63 @@ def to_mont(a):
 def from_mont(a):
     """Montgomery form -> plain residue in [0, p)."""
     return mont_mul(a, const_stack(int_to_limbs(1), _bshape(a), a.device))
+
+
+def one_mont(shape=(), device="cpu"):
+    return const_stack(R_MOD_P_LIMBS, shape, device)
+
+
+def is_zero_mask(a):
+    return (a == 0).all(0)
+
+
+def eq_mask(a, b):
+    a, b = _align2(a, b)
+    return (a == b).all(0)
+
+
+def neg_mod(a):
+    """p - a (a < p, so no borrow escapes), with -0 = 0."""
+    a64 = a.to(torch.int64)
+    borrow = torch.zeros_like(a64[0])
+    d = []
+    for j in range(L):
+        v = _P[j] - a64[j] - borrow
+        d.append(v & MASK)
+        borrow = (v >> W) & 1
+    out = torch.stack(d, 0)
+    return torch.where(is_zero_mask(a)[None], torch.zeros_like(out),
+                       out).to(torch.int32)
+
+
+def select(mask, a, b):
+    """where(mask, a, b) on stacked limbs; mask has the batch shape."""
+    return torch.where(mask[None], a, b)
+
+
+def mont_sqr(a):
+    return mont_mul(a, a)
+
+
+def pow_const(a, e: int):
+    """a**e for a constant int exponent: square-and-multiply over the bits
+    of e from the top. Every product is a canonical Montgomery residue, so
+    the result is the reference's word for word (its lax.scan computes the
+    unused products too and selects them away)."""
+    if e == 0:
+        return one_mont(_bshape(a), a.device)
+    if e < 0:
+        return pow_const(inv_mod(a), -e)
+    acc = None
+    for bit in bin(e)[2:]:
+        if acc is not None:
+            acc = mont_sqr(acc)
+        if bit == "1":
+            acc = a if acc is None else mont_mul(acc, a)
+    return acc
+
+
+def inv_mod(a):
+    """Batched modular inverse via Fermat: a^(p-2); inv(0) = 0 (callers
+    mask)."""
+    return pow_const(a, P - 2)

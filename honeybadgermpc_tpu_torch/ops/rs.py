@@ -1,7 +1,12 @@
-"""Reed-Solomon encoding over GF(p): the evaluation domain and encode.
+"""Reed-Solomon encoding over GF(p): the evaluation domain, encode and
+erasure decode.
 
-Counterpart of ``honeybadgermpc_tpu/ops/rs.py``; decode, interpolation and
-the FNT path belong to robust decoding and are not ported yet.
+Counterpart of ``honeybadgermpc_tpu/ops/rs.py``. Decode takes the erasure
+SUBSET of party indices whose shares are present and interpolates through
+the Vandermonde points; the FNT decode of the omega domain
+(``use_omega_powers=True``, the reference's ``_fnt_decode`` over
+ops/ntt.py) is not ported yet and raises. Robust (error-correcting) decode
+lives in ops/gao.py.
 """
 
 from __future__ import annotations
@@ -10,7 +15,8 @@ from functools import lru_cache
 from random import Random
 
 from .fparray import FpArray
-from .fpmatmul import vandermonde_batch_evaluate
+from .fpmatmul import (lagrange_evaluate_at, vandermonde_batch_evaluate,
+                       vandermonde_batch_interpolate)
 from .limbs import P
 
 
@@ -52,10 +58,37 @@ class Encoding:
 
     def encode(self, coeffs: FpArray) -> FpArray:
         """coeffs[..., k] -> shares[..., n] (share j = poly(point_j)).
-        Both domains evaluate through the band matmul at `self.points`;
-        the reference evaluates the omega domain with an NTT, which gives
-        the same canonical values."""
+        Both domains evaluate at `self.points` (the band matmul for a large
+        batch, else fp_matmul); the reference evaluates the omega domain
+        with an NTT, which gives the same canonical values."""
         if coeffs.shape[-1] > self.n:
             raise ValueError(f"degree+1 = {coeffs.shape[-1]} exceeds "
                              f"n = {self.n}")
         return vandermonde_batch_evaluate(self.points, coeffs)
+
+    def decode(self, zs, ys: FpArray) -> FpArray:
+        """Interpolate coefficients from the shares of parties ``zs`` (a
+        tuple of party indices); ys[..., len(zs)]."""
+        zs = tuple(int(z) for z in zs)
+        if ys.shape[-1] != len(zs):
+            raise ValueError(f"{ys.shape[-1]} shares for {len(zs)} parties")
+        if self.use_omega_powers:
+            raise NotImplementedError(
+                "the FNT decode of the omega domain (ops/ntt.py) is not "
+                "ported yet")
+        xs = tuple(self.points[z] for z in zs)
+        return vandermonde_batch_interpolate(xs, ys, allow_band=False)
+
+    def interpolate_at(self, zs, ys: FpArray, x0: int = 0) -> FpArray:
+        xs = [self.points[z] for z in zs]
+        return lagrange_evaluate_at(xs, ys, x0)
+
+
+def optimistic_check(enc: Encoding, coeffs: FpArray, zs_check,
+                     ys_check: FpArray):
+    """Re-encode decoded coefficients and compare against additional
+    shares. Returns a bool mask [..., len(zs_check)] of AGREEMENT per
+    share."""
+    shares = enc.encode(coeffs)
+    sub = shares.take(list(zs_check), axis=shares.ndim - 1)
+    return sub.eq(ys_check)

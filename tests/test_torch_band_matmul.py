@@ -98,9 +98,13 @@ def test_vandermonde_evaluate_and_encoding_points():
     want = [sum(coeffs[b * k + i] * pow(x, i, P) for i in range(k)) % P
             for b in range(B) for x in enc.points]
     assert out.to_ints().reshape(-1).tolist() == want
-    with pytest.raises(NotImplementedError):
-        vandermonde_batch_evaluate(
-            range(1, 200), FpArray.zeros((2, 3), device="cpu"))
+    # 199 points are past the band (m <= 128): fp_matmul against the
+    # Vandermonde matrix serves them
+    wide = vandermonde_batch_evaluate(range(1, 200), fa.reshape(B, k))
+    assert wide.shape == (B, 199)
+    assert wide.to_ints().reshape(-1).tolist() == \
+        [sum(coeffs[b * k + i] * pow(x, i, P) for i in range(k)) % P
+         for b in range(B) for x in range(1, 200)]
 
 
 def test_encoding_omega_points_match_reference():

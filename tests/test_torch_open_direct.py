@@ -137,8 +137,11 @@ def test_open_k43_batch_off_the_tile_with_zero_tail():
 def test_open_checks_its_input_and_unported_branches(honest):
     _, packed = honest
     good = from_reference_packed(packed, "cpu")
-    with pytest.raises(NotImplementedError):
-        fod.sim_open_direct_packed(good, N, T, POINTS, robust=True)
+    # robust=True on honest shares: the detect-only result, no redo
+    sec_r, nerr_r = fod.sim_open_direct_packed(good, N, T, POINTS,
+                                               robust=True)
+    sec_d, nerr_d = fod.sim_open_direct_packed(good, N, T, POINTS)
+    assert torch.equal(sec_r, sec_d) and torch.equal(nerr_r, nerr_d)
     with pytest.raises(NotImplementedError):
         _sim_reconstruct_packed_jit(N, T, False, True)
     with pytest.raises(NotImplementedError):
