@@ -15,15 +15,20 @@ n=64, t=21:
   * the robust open — one 16896-sharing segment with the shares of 21
     parties replaced: the two-phase ``sim_batch_reconstruct`` (detect-only
     open, then the Gao redo over 2 x 49,152 decodes), ``batch_reconstruct``
-    with its Gao fallback, ``sim_open_direct_packed(robust=True)`` and
-    ``robust_open_single``.
+    with its Gao fallback, ``sim_open_direct_packed(robust=True)``,
+    ``robust_open_single`` and the three-kernel open with its fallback;
+  * the offline programs — ``sim_offline_jit(program, 64, 21, 4096,
+    in_graph_fallback)`` for randousha, generate_triples and generate_bits
+    in both modes (90,112 double sharings, triples or bits per call): the
+    fused pipelines, the eager per-column programs with detect-only opens,
+    and with the faithful three-kernel open and its in-program fallback.
 
 The first run builds the kernels from ``honeybadgermpc_tpu_torch/csrc``
 into ``honeybadgermpc_tpu_torch/build``.
 
 Phases, each printing one JSON line; any failure exits non-zero:
   1 device    a CUDA card must be present; prints its name and power limit
-  2 build     compile and load the eleven kernels
+  2 build     compile and load the fifteen kernels
   3 kernels   each kernel against its plain PyTorch version on the card,
               bit for bit, at small, unaligned and main-path shapes, with
               times and the computed bound
@@ -45,7 +50,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
               parties: phase one sees them, the redo returns the honest
               secrets with nerr == 768*21 at every party, the other three
               entry points agree, no plain multiply or matmul ran on the
-              card; the redo's time and the device time of one Gao segment
+              card; the redo's time and the device time of one Gao segment;
+              the three-kernel open charges every destination and its
+              fallback returns the honest secrets
+ 13 program kernels  rows 10 and 16-18 (mul_add_packed, open_fused K1-K3)
+              against their plain versions on the card, bit for bit, at the
+              programs' shapes (k = 22 and 43), an unaligned chunk count and
+              a small shape, honest and faulted, a Python-int sample each
+ 14 programs  each program in both modes once with the launch counts set
+              to 0 just before and read just after: ok; r_t and r_2t open
+              to equal secrets; ab == a*b for every triple; every bit is 0
+              or 1 and both occur; K1-K3 launched by the fallback runs,
+              mul_add_packed by the fused triples, no plain version on the
+              card; then ms per call, outputs per second, device-busy ms
+ 15 program fault     generate_triples with the fallback at k=16 and one
+              party sending wrong shares of a*b + r: the outputs equal the
+              honest run's, ok turns false
 
 The last line of the output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -65,7 +85,10 @@ packed finish functions are counted like the sampler; both come out bound
 by their bytes. So are the robust open's elementwise multiply and CIOS
 matmul (on 8 words of 32 bits) and the MXU epilogues (on the reference's
 16-bit carry-save limbs); the folded MXU kernel's int8 dot is counted as
-the scheme runs it (37 x 37 digit products per operand and output).
+the scheme runs it (37 x 37 digit products per operand and output). The
+three-kernel open's dots are counted like the direct open's (32 diagonals
+x 32k digits per lane and column), K3 decoding once; the flat finish like
+the 4D one.
 """
 
 import argparse
@@ -85,11 +108,13 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from honeybadgermpc_tpu_torch import _build  # noqa: E402
 from honeybadgermpc_tpu_torch.ops import band_matmul as bm  # noqa: E402
 from honeybadgermpc_tpu_torch.ops import field_kernels as fk  # noqa: E402
+from honeybadgermpc_tpu_torch.ops import fused_open as fo  # noqa: E402
 from honeybadgermpc_tpu_torch.ops import fused_open_direct as fod  # noqa: E402
 from honeybadgermpc_tpu_torch.ops import fused_randousha as fr  # noqa: E402
 from honeybadgermpc_tpu_torch.ops import montgomery as mont  # noqa: E402
 from honeybadgermpc_tpu_torch.ops import mxu_matmul as mxu  # noqa: E402
-from honeybadgermpc_tpu_torch.ops.fparray import dev_const  # noqa: E402
+from honeybadgermpc_tpu_torch.ops.fparray import (  # noqa: E402
+    FpArray, dev_const)
 from honeybadgermpc_tpu_torch.ops.fpmatmul import (  # noqa: E402
     _decode_validate_np, _lagrange_matrix_np, _matmul_kernel,
     _vandermonde_int_rows)
@@ -151,12 +176,18 @@ KERNEL_COUNTERS = {
     "fp_matmul_cios": (fk, "launches_matmul"),
     "mxu_fused2": (mxu, "launches_fused2"),
     "mxu_redc": (mxu, "launches_redc"),
+    "open_fused_k1": (fo, "launches_k1"),
+    "open_fused_k2": (fo, "launches_k2"),
+    "open_fused_k3": (fo, "launches_k3"),
+    "mul_add_packed": (fk, "launches_mul_add"),
 }
 # plain versions run on CUDA tensors (module, counter): the card's paths
 # must leave them at 0; only the comparisons with the kernels move them
 PLAIN_COUNTERS = {
     "mont_mul_plain": (mont, "plain_calls_on_cuda"),
     "mxu_matmul_plain": (mxu, "plain_calls_on_cuda"),
+    "open_fused_plain": (fo, "plain_calls_on_cuda"),
+    "open_direct_plain": (fod, "plain_calls_on_cuda"),
 }
 # Least 32-bit integer instructions per Montgomery product on 8 words of 32
 # bits, counted as for MUL_ADD_OPS_PER_ELEMENT without its add: 8 x 8 x
@@ -174,6 +205,13 @@ ADD_MOD_OPS = 24
 FOLD37_OPS_BASE = 19 * 11 + 48 + 2 * 64       # + 52 per REDC round
 REDC73_OPS = 37 * 11 + 17 * 52 + 48 + 64
 BAD_PARTIES = tuple(range(0, 3 * T, 3))     # 21 parties, both sides of k
+PROGRAMS = ("randousha", "generate_triples", "generate_bits")
+# chunk counts of the eager randousha's check opens at k = 4096 slots:
+# 4096 * 2t = 172,032 columns per party, padded to a multiple of t+1 = 22
+# (7820 chunks) and of 2t+1 = 43 (4001 chunks)
+C_T = -(-KT * 2 * T // K)
+C_2T = -(-KT * 2 * T // (2 * T + 1))
+FAULT_KT = 16                     # slots of the in-program fault case
 
 
 def say(phase, **rec):
@@ -204,10 +242,13 @@ def time_ms(fn, reps):
 
 
 def kernel_ms(fn, reps, kernel_name):
-    """Mean device time of the CUDA kernel `kernel_name` over `reps` calls
-    of fn(), from the profiler's device trace (so host time between
-    launches does not count); CUDA events if the trace shows no device
-    time."""
+    """Mean device time of one launch of the CUDA kernel `kernel_name`
+    over `reps` calls of fn() (one launch each), from the profiler's device
+    trace (so host time between launches does not count): the mean over
+    the launches the trace holds. The profiler may drop events, and the
+    result must not depend on it: where the trace holds fewer than half of
+    the launches, CUDA events around the `reps` calls instead (which count
+    host time between launches only where the kernel is shorter than it)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     sync()
@@ -216,14 +257,16 @@ def kernel_ms(fn, reps, kernel_name):
         for _ in range(reps):
             fn()
         sync()
-    total_us = 0.0
+    total_us, count = 0.0, 0
     for ev in prof.key_averages():
         if kernel_name in ev.key:
             total_us += getattr(ev, "device_time_total",
                                 getattr(ev, "cuda_time_total", 0.0))
-    if total_us <= 0.0:
-        return time_ms(fn, reps), "cuda_events"
-    return total_us / reps / 1e3, "profiler"
+            count += ev.count
+    if total_us <= 0.0 or 2 * count < reps:
+        return time_ms(fn, reps), f"cuda_events (trace held {count} " \
+            f"of {reps} launches)"
+    return total_us / count / 1e3, f"profiler ({count} of {reps} launches)"
 
 
 def max_abs_err(a, b):
@@ -1050,23 +1093,30 @@ def phase_kernels_robust(dev):
         int_mm_ms
 
 
-def device_busy_ms(fn):
+def device_busy_ms(fn, top=0):
     """Device time of one call of fn(), summed over every CUDA kernel the
-    profiler saw, and the number of kernel launches."""
+    profiler saw, and the number of kernel launches; with top > 0 also the
+    `top` kernels by device time {name: ms}. A lower bound where the
+    profiler drops events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         sync()
-    us, count = 0.0, 0
+    us, count, by_name = 0.0, 0, {}
     for ev in prof.key_averages():
         if getattr(ev, "device_type", None) != DeviceType.CUDA:
             continue
-        us += getattr(ev, "device_time_total",
-                      getattr(ev, "cuda_time_total", 0.0))
+        t = getattr(ev, "device_time_total",
+                    getattr(ev, "cuda_time_total", 0.0))
+        us += t
         count += ev.count
-    return us / 1e3, count
+        by_name[ev.key[:60]] = by_name.get(ev.key[:60], 0.0) + t / 1e3
+    if not top:
+        return us / 1e3, count
+    best = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return us / 1e3, count, dict(best)
 
 
 def phase_robust_open(dev):
@@ -1148,6 +1198,31 @@ def phase_robust_open(dev):
     for name in ("mont_mul", "fp_matmul_cios", "mxu_fused2", "mxu_redc"):
         check(launches[name] > 0, f"the robust open never launched {name}")
 
+    # (e) the three-kernel open: K1-K3 see the faults at every destination
+    # (the direct open charges only the sources), and its fallback returns
+    # the honest secrets with the per-destination counts
+    packed_bad = pack_limbs(faulty.limbs)
+    reset_launches()
+    _, nerr_k = fo.sim_open_fused_packed(packed_bad, N, T, pts, robust=False)
+    _, nerr_dir = fod.sim_open_direct_packed(packed_bad, N, T, pts)
+    sync()
+    check(all(v > 0 for v in nerr_k.tolist())
+          and sum(nerr_dir.tolist()[:K]) == 0,
+          f"three-kernel counts {nerr_k.tolist()[:4]}... must charge every "
+          "destination")
+    t0 = time.perf_counter()
+    sec_e, nerr_e = _sim_reconstruct_packed_jit(
+        N, T, False, True, fallback=True)(packed_bad)
+    sync()
+    fused_fallback_s = time.perf_counter() - t0
+    le = read_launches()
+    check(torch.equal(sec_e, pack_limbs(sec_a.limbs))
+          and nerr_e.tolist() == [want_nerr] * N,
+          "three-kernel open with fallback disagrees with the robust open")
+    check(all(le[f"open_fused_k{s}"] == 2 for s in (1, 2, 3)),
+          f"three-kernel open: K1-K3 launches {le}")
+    del packed_bad
+
     # the redo's time: one Gao segment and the encode, on the device
     recv = rec._redo_encode_jit(N, False, K)(faulty.limbs.contiguous())
     seg = recv.reshape(L, N * C, N)[:, :rec._REDO_SEG].contiguous()
@@ -1166,7 +1241,9 @@ def phase_robust_open(dev):
         bad_parties=len(BAD_PARTIES), nerr_per_party=want_nerr,
         launches_honest=la, launches_redo=lb,
         launches_all=launches, plain_calls_on_card=plain,
-        batch_reconstruct_ms=br_s * 1e3)
+        batch_reconstruct_ms=br_s * 1e3,
+        three_kernel_nerr_min=min(nerr_k.tolist()),
+        three_kernel_fallback_ms=fused_fallback_s * 1e3)
     return launches, {
         "redo_ms_per_segment": redo_s * 1e3,
         "redo_sharings_per_s": SEG / redo_s,
@@ -1181,8 +1258,325 @@ def phase_robust_open(dev):
         "batch_reconstruct_ms": br_s * 1e3}
 
 
+# -- the offline programs: the three-kernel open and the flat finish --------
+
+def open_fused_bound(stage, n, k, c):
+    """Bytes: each input read once, each output written once; operations:
+    the int8 dot as the kernel runs it (32 diagonals x 32k digits per lane
+    and column), K3 decoding once."""
+    nv = n - k
+    if stage == 1:
+        lanes, ncol = n * c, n
+        nbytes = 32 * n * k * c + 32 * n * n * c
+    elif stage == 2:
+        lanes, ncol = n * c, nv + 1
+        nbytes = 32 * n * n * c + 32 * n * c + 4 * n
+    else:
+        lanes, ncol = c, n
+        nbytes = 32 * n * c + 32 * k * c + 4
+    nbytes += ncol * 8 * k * 128                      # the band
+    return bound(nbytes, 2 * lanes * ncol * 32 * 32 * k, INT8_OPS_PER_S)
+
+
+def packed_ints(packed, idx):
+    """Montgomery-form ints of packed [PL, ...] at flat element indices."""
+    return [v for v in mont_ints(packed.reshape(PL, -1)[:, idx])[0]]
+
+
+def compare_open_fused(dev, n, k, c, key):
+    """K1, K2, K3 against their plain versions on consistent shares, then
+    on faulted ones, with a Python-int sample of each stage. Returns the
+    worst error and the path-shape inputs of the three stages."""
+    pts = tuple(range(1, n + 1))
+    view = deal_packed(dev, n, k - 1, k * c, key).reshape(PL, n, k, c)
+    cols = fo.open_k1(view, pts)
+    want = fo._k1_plain(view, pts)
+    sync()
+    check(torch.equal(cols, want), f"open_fused K1 != plain at {(n, k, c)}")
+    worst = max_abs_err(cols, want)
+    # Python ints: party p's predicted column for destination j
+    p, j, cc = n - 1, n // 2, c - 1
+    co = packed_ints(view[:, p, :, cc], list(range(k)))
+    got = packed_ints(cols[:, p, j, cc], [0])[0]
+    check(got == sum(x * pow(j + 1, i, P) for i, x in enumerate(co)) % P,
+          f"open_fused K1 != Python ints at {(n, k, c)}")
+    stage_in = [view, cols, None]
+    for faulted in (False, True):
+        x = cols
+        if faulted:
+            x = cols.clone()
+            x[3, n - 1, 2, c - 1] ^= 0x10          # dst 2, validating source
+            x[0, 0, n - 1, 0] ^= 1                 # dst n-1, interpolating
+        vals, errs = fo.open_k2(x, pts, k)
+        vals_p, errs_p = fo._k2_plain(x, pts, k)
+        sync()
+        check(torch.equal(vals, vals_p) and torch.equal(errs, errs_p),
+              f"open_fused K2 != plain at {(n, k, c)} faulted={faulted}")
+        bad = errs.tolist()
+        check((bad[2] > 0 and bad[n - 1] > 0 and sum(bad) == bad[2]
+               + bad[n - 1]) if faulted else sum(bad) == 0,
+              f"open_fused K2 counts {bad} (faulted={faulted})")
+        worst = max(worst, max_abs_err(vals, vals_p), max_abs_err(errs, errs_p))
+        if not faulted:
+            lam0 = _lam_int(list(range(1, k + 1)), 0)
+            ys = packed_ints(cols[:, :k, j, cc], list(range(k)))
+            check(packed_ints(vals[:, j, cc], [0])[0]
+                  == sum(l * y for l, y in zip(lam0, ys)) % P,
+                  f"open_fused K2 != Python ints at {(n, k, c)}")
+            stage_in[2] = vals
+    vals = stage_in[2]
+    for faulted in (False, True):
+        x = vals
+        if faulted:
+            x = vals.clone()
+            x[5, n - 1, c // 2] ^= 0x100
+        sec, errs = fo.open_k3(x, pts, k)
+        sec_p, errs_p = fo._k3_plain(x, pts, k)
+        sync()
+        check(torch.equal(sec, sec_p) and torch.equal(errs, errs_p),
+              f"open_fused K3 != plain at {(n, k, c)} faulted={faulted}")
+        check(errs.tolist() == [int(faulted)],
+              f"open_fused K3 counts {errs.tolist()} (faulted={faulted})")
+        worst = max(worst, max_abs_err(sec, sec_p), max_abs_err(errs, errs_p))
+    # Python ints: the k secret coefficients re-encode to party j's psi
+    sec, _ = fo.open_k3(vals, pts, k)
+    co = packed_ints(sec[:, :, cc], list(range(k)))
+    check(packed_ints(vals[:, j, cc], [0])[0]
+          == sum(x * pow(j + 1, i, P) for i, x in enumerate(co)) % P,
+          f"open_fused K3 != Python ints at {(n, k, c)}")
+    return worst, stage_in
+
+
+def compare_mul_add(dev, b):
+    x = [pack_limbs(rand_field(dev, (71 + i, b), (b,))) for i in range(3)]
+    got = fk.mul_add_packed(*x)
+    want = fk._mul_add_packed_plain(*x)
+    sync()
+    check(torch.equal(got, want), f"mul_add_packed != plain at B={b}")
+    rinv = pow(R_MOD_P, P - 2, P)
+    for i in sorted({0, b // 2, b - 1}):
+        a_, b_, c_, o = (packed_ints(t, [i])[0] for t in (*x, got))
+        check(o == (a_ * b_ * rinv + c_) % P,
+              f"mul_add_packed != Python ints at B={b} element {i}")
+    return max_abs_err(got, want), x
+
+
+def phase_kernels_programs(dev):
+    """Rows 10 and 16-18 of PERF.md (mul_add_packed, K1-K3) against their
+    plain versions on the card, bit for bit, with Python-int samples, at
+    the programs' shapes (k = 22 and 43), an unaligned chunk count and a
+    small shape; times and bounds."""
+    t0 = time.perf_counter()
+    err = {f"open_fused_k{s}": 0 for s in (1, 2, 3)}
+    shapes, times = [], {}
+    for n, k, c in ((8, 3, 5), (N, K, 33), (N, K, C_T),
+                    (N, 2 * T + 1, C_2T)):
+        worst, stage_in = compare_open_fused(dev, n, k, c, (73, c))
+        for s in (1, 2, 3):
+            err[f"open_fused_k{s}"] = max(err[f"open_fused_k{s}"], worst)
+        shapes.append(f"open_fused K1-K3 n={n} k={k} C={c} (+ faults)")
+        if n == N and c in (C_T, C_2T):
+            pts = tuple(range(1, N + 1))
+            view, cols, vals = stage_in
+            tag = "" if k == K else f"_k{k}"
+            runs = ((1, lambda: fo.open_k1(view, pts),
+                     lambda: fo._k1_plain(view, pts)),
+                    (2, lambda: fo.open_k2(cols, pts, k),
+                     lambda: fo._k2_plain(cols, pts, k)),
+                    (3, lambda: fo.open_k3(vals, pts, k),
+                     lambda: fo._k3_plain(vals, pts, k)))
+            for s, kern, plain in runs:
+                times[f"open_fused_k{s}{tag}"] = (
+                    kernel_ms(kern, 10, f"open_fused_k{s}_kernel"),
+                    timed_once(plain), open_fused_bound(s, N, k, c))
+            del view, cols, vals, stage_in
+    worst = 0
+    for b in (1, 777, N * N_OUT * KT):
+        e, operands = compare_mul_add(dev, b)
+        worst = max(worst, e)
+        shapes.append(f"mul_add_packed B={b}")
+    err["mul_add_packed"] = worst
+    times["mul_add_packed"] = (
+        kernel_ms(lambda: fk.mul_add_packed(*operands), 20,
+                  "mul_add_packed_kernel"),
+        timed_once(lambda: fk._mul_add_packed_plain(*operands)),
+        mul_add_bound(N * N_OUT * KT))
+    say("program_kernels_vs_plain", ok=True, tolerance="exact (torch.equal)",
+        shapes=shapes, timed_by={k: v[0][1] for k, v in times.items()},
+        seconds=round(time.perf_counter() - t0, 3))
+    return err, {k: (v[0][0], v[1], v[2]) for k, v in times.items()}
+
+
+def open_fp(x, deg):
+    """Open FpArray shares [n, m] on the card at degree `deg` with the
+    detect-only direct open -> (one copy [PL, m], nerr [n]); the column
+    count is padded with zero sharings to a multiple of deg+1."""
+    packed = pack_limbs(x.limbs)
+    m = packed.shape[-1]
+    pad = (-m) % (deg + 1)
+    if pad:
+        packed = torch.cat([packed, packed.new_zeros((PL, N, pad))], dim=-1)
+    run = _sim_reconstruct_packed_jit(N, deg, False, True, fallback=False,
+                                      replicate=False)
+    sec, nerr = run(packed)
+    return sec[:, :m], nerr
+
+
+def check_program(prog, fb, out):
+    """The program's outputs are right: ok; double sharings open to equal
+    secrets at both degrees; ab = a*b for every triple (and in Python ints
+    for a sample); every bit is 0 or 1 and both occur."""
+    what = f"{prog} in_graph_fallback={fb}"
+    check(bool(out[-1]), f"{what}: ok is false on an honest run")
+    m = N_OUT * KT
+    for x in out[:-1]:
+        check(x.shape == (N, m) and x.limbs.is_cuda, f"{what}: shapes")
+    if prog == "randousha":
+        st, e1 = open_fp(out[0], T)
+        s2, e2 = open_fp(out[1], 2 * T)
+        check(int(e1.sum()) == 0 and int(e2.sum()) == 0
+              and torch.equal(st, s2), f"{what}: r_t, r_2t disagree")
+        check(st.unique(dim=1).shape[1] == m, f"{what}: secrets repeat")
+        return {"opened_equal": True}
+    if prog == "generate_triples":
+        (a, ea), (b, eb), (ab, eab) = (open_fp(x, T) for x in out[:3])
+        check(int(ea.sum() + eb.sum() + eab.sum()) == 0,
+              f"{what}: a, b, ab do not open cleanly")
+        prod = pack_limbs(mont.mont_mul(unpack_limbs(a), unpack_limbs(b)))
+        nbad = int((prod != ab).any(dim=0).sum())
+        check(nbad == 0, f"{what}: ab != a*b for {nbad} of {m} triples")
+        for i in (0, m // 3, m - 1):
+            ai, bi, abi = (plain_int(x[:, i]) for x in (a, b, ab))
+            check(abi == ai * bi % P, f"{what}: Python ints ab != a*b")
+        return {"product_mismatches": nbad}
+    bits, e = open_fp(out[0], T)
+    check(int(e.sum()) == 0, f"{what}: bits do not open cleanly")
+    one = pack_limbs(FpArray.from_int(1, device=bits.device).limbs)[:, None]
+    is0, is1 = (bits == 0).all(dim=0), (bits == one).all(dim=0)
+    check(bool((is0 | is1).all()), f"{what}: a bit is neither 0 nor 1")
+    check(bool(is0.any()) and bool(is1.any()), f"{what}: one bit value only")
+    return {"zeros": int(is0.sum()), "ones": int(is1.sum())}
+
+
+def phase_programs(dev, reps):
+    """sim_offline_jit(program, 64, 21, 4096, in_graph_fallback) for the
+    three eager-path programs in both modes. Each call runs with the launch
+    counts set to 0 just before it and read just after; the path's counts
+    are their sum. Then the outputs are checked, and each program timed."""
+    fns = {(p, fb): sim_offline_jit(p, N, T, KT, fb)
+           for p in PROGRAMS for fb in (False, True)}
+    for i, fn in enumerate(fns.values()):        # bands and launchers
+        fn((3030, i))
+    sync()
+    torch.cuda.empty_cache()
+    path = {name: 0 for name in KERNEL_COUNTERS}
+    per_call, rows = {}, {}
+    for i, ((prog, fb), fn) in enumerate(fns.items()):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        out = fn((3031, i))
+        sync()
+        first_s = time.perf_counter() - t0
+        counts, plain = read_launches(), read_plain()
+        for name, v in counts.items():
+            path[name] += v
+        check(all(v == 0 for v in plain.values()),
+              f"{prog} fb={fb}: plain versions ran on the card: {plain}")
+        ran = {name: v for name, v in counts.items() if v}
+        tag = f"{prog}{'_fallback' if fb else ''}"
+        rows[tag] = {"launches": ran,
+                     "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                     "first_call_ms": first_s * 1e3,
+                     **check_program(prog, fb, out)}
+        if fb:
+            for s in (1, 2, 3):
+                check(counts[f"open_fused_k{s}"] > 0,
+                      f"{tag} never launched K{s}")
+            check(counts["open_direct"] == 0,
+                  f"{tag}: the robust program ran a detect-only open")
+        if prog == "generate_triples" and not fb:
+            check(counts["mul_add_packed"] == 1,
+                  f"{tag}: mul_add_packed launched {counts['mul_add_packed']}"
+                  " times, expected 1")
+        del out
+        torch.cuda.empty_cache()
+    for s in (1, 2, 3):
+        check(path[f"open_fused_k{s}"] > 0, f"the programs never ran K{s}")
+    check(path["mul_add_packed"] > 0, "the programs never ran mul_add_packed")
+    say("programs", ok=True, n=N, t=T, k=KT, outputs_per_call=N_OUT * KT,
+        calls=rows, launches=path)
+
+    # timing: a new key every call; device time of one more, profiled
+    nrep = min(reps, 5)
+    for i, ((prog, fb), fn) in enumerate(fns.items()):
+        tag = f"{prog}{'_fallback' if fb else ''}"
+        sync()
+        t0 = time.perf_counter()
+        for r in range(nrep):
+            out = fn((3032 + i, r))
+        sync()
+        dt = (time.perf_counter() - t0) / nrep
+        check(bool(out[-1]), f"timed {tag}: ok is false")
+        del out
+        busy_ms, nkern, top = device_busy_ms(lambda: fn((3040 + i, 0)), 8)
+        per_call[tag] = {"ms_per_call": dt * 1e3,
+                         "outputs_per_s": N_OUT * KT / dt,
+                         "device_busy_ms_per_call": busy_ms,
+                         "device_kernels_per_call": nkern,
+                         "device_ms_top_kernels": top,
+                         "timed_calls": nrep,
+                         "launches_per_call": rows[tag]["launches"],
+                         "peak_device_bytes":
+                         rows[tag]["peak_device_bytes"]}
+        torch.cuda.empty_cache()
+    return path, per_call
+
+
+def phase_program_fault(dev):
+    """generate_triples with in_graph_fallback=True at a small k, party 5
+    sending wrong shares of a*b + r: the three-kernel open sees it, the
+    Gao fallback inside the call corrects it — a, b, ab equal the honest
+    run's — and ok still turns False, as in the reference."""
+    fn = sim_offline_jit("generate_triples", N, T, FAULT_KT, True)
+    bump = FpArray.from_int(1, device=dev)
+
+    def tamper(name, cols):
+        if name != "ab_plus_r":
+            return cols
+        limbs = cols.limbs.clone()
+        limbs[:, 5] = (FpArray(limbs[:, 5]) + bump).limbs
+        return FpArray(limbs)
+
+    reset_launches()
+    honest = fn((3050, 0))
+    sync()
+    counts_h = read_launches()
+    reset_launches()
+    t0 = time.perf_counter()
+    faulty = fn((3050, 0), tamper=tamper)
+    sync()
+    secs = time.perf_counter() - t0
+    counts = read_launches()
+    check(bool(honest[3]) and not bool(faulty[3]),
+          "in-program fallback: ok must be true honest, false faulty")
+    for x, y in zip(honest[:3], faulty[:3]):
+        check(torch.equal(x.limbs, y.limbs),
+              "in-program fallback: outputs differ from the honest run")
+    # the Gao decoder is thousands of elementwise multiplies
+    check(counts["open_fused_k1"] > 0
+          and counts["mont_mul"] > counts_h["mont_mul"] + 1000,
+          f"in-program fallback: no three-kernel open or no Gao: {counts}")
+    say("program_fault", ok=True, program="generate_triples", k=FAULT_KT,
+        faulty_party=5, ok_flags=[bool(honest[3]), bool(faulty[3])],
+        outputs_equal_honest=True,
+        launches={k: v for k, v in counts.items() if v},
+        ms=secs * 1e3)
+
+
 def kernels_line(times, err, launches, launches_triples, launches_robust,
-                 int_mm_ms):
+                 launches_programs, int_mm_ms):
     """The rows of the `kernels` JSON line, one per kernel: its source, the
     TPU kernel it replaces, launches on its path, times and bound."""
     meta = {
@@ -1227,19 +1621,42 @@ def kernels_line(times, err, launches, launches_triples, launches_robust,
             "honeybadgermpc_tpu_torch/csrc/mxu_redc.cu",
             "honeybadgermpc_tpu/ops/mxu_matmul.py:547",
             f"M=2048*{N} (B=2048 k={N} n={N})"),
+        "open_fused_k1": (
+            "honeybadgermpc_tpu_torch/csrc/open_fused.cu",
+            "honeybadgermpc_tpu/ops/fused_open.py:419",
+            f"n={N} k={K} C={C_T}"),
+        "open_fused_k2": (
+            "honeybadgermpc_tpu_torch/csrc/open_fused.cu",
+            "honeybadgermpc_tpu/ops/fused_open.py:442",
+            f"n={N} k={K} C={C_T}"),
+        "open_fused_k3": (
+            "honeybadgermpc_tpu_torch/csrc/open_fused.cu",
+            "honeybadgermpc_tpu/ops/fused_open.py:470",
+            f"n={N} k={K} C={C_T} (one decode)"),
+        "mul_add_packed": (
+            "honeybadgermpc_tpu_torch/csrc/packed_arith.cu",
+            "honeybadgermpc_tpu/ops/pallas_field.py:194",
+            f"[{PL},{N * N_OUT * KT}]"),
     }
     # extra shapes timed beside a kernel's main one
     extra = {"randousha_deal": ("randousha_deal_2t", f"k={2 * T + 1}"),
              "mont_mul": ("mont_mul_folded_band", f"[{L},{2 * T},{N}]"),
              "mxu_fused2": (f"mxu_fused2_n{N}", f"B={N * C} k={K} n={N}")}
+    for s in (1, 2, 3):
+        extra[f"open_fused_k{s}"] = (f"open_fused_k{s}_k{2 * T + 1}",
+                                     f"k={2 * T + 1} C={C_2T}")
     robust_path = ("mont_mul", "fp_matmul_cios", "mxu_fused2", "mxu_redc")
+    program_path = ("open_fused_k1", "open_fused_k2", "open_fused_k3",
+                    "mul_add_packed")
     kernels = []
     for name, (source, replaces, shape) in meta.items():
         ms, plain_ms, (bound_ms, bound_by) = times[name]
         # launches: from the run of the path the kernel belongs to (the
         # open path for the first three, the triple call for the next four,
         # the robust open for the last four); the open kernel serves all
-        if name in robust_path:
+        if name in program_path:
+            count = launches_programs[name]
+        elif name in robust_path:
             count = launches_robust[name]
         elif launches[name] > 0:
             count = launches[name]
@@ -1253,6 +1670,7 @@ def kernels_line(times, err, launches, launches_triples, launches_robust,
             "shape": shape, "share_of_bound": bound_ms / ms}
         if name in ("open_direct", "mont_mul"):
             row["launches_triple_call"] = launches_triples[name]
+            row["launches_programs"] = launches_programs[name]
         if name == "open_direct":
             row["launches_robust_open"] = launches_robust[name]
         if name == "mxu_redc":      # its dot, outside the kernel
@@ -1312,9 +1730,18 @@ def main():
     times.update(times3)
     launches_robust, robust = phase_robust_open(dev)
     say("robust_timing", card=card, **robust)
+    torch.cuda.empty_cache()
+
+    err4, times4 = phase_kernels_programs(dev)
+    err.update(err4)
+    times.update(times4)
+    torch.cuda.empty_cache()
+    launches_programs, programs = phase_programs(dev, args.reps)
+    say("program_timing", card=card, **programs)
+    phase_program_fault(dev)
 
     kernels = kernels_line(times, err, launches, launches_triples,
-                           launches_robust, int_mm_ms)
+                           launches_robust, launches_programs, int_mm_ms)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

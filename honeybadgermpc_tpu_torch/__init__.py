@@ -23,9 +23,13 @@ hand-written kernel (``csrc/``) or raises; it takes the plain PyTorch
 version only for a tensor that lies on the CPU.
 
 What is ported so far: the dealer for random sharings, the packed format
-and the detect-only single-kernel n-party open (deal -> pack -> open); and
-the fused offline path, RanSha / RanDouSha with the aggregated check and
-the packed triple finish (runtime/offline.py: verified Beaver triples).
+and the detect-only single-kernel n-party open (deal -> pack -> open); the
+fused offline path, RanSha / RanDouSha with the aggregated check and the
+packed triple finish (runtime/offline.py: verified Beaver triples); the
+robust open with the Gao decoder (parallel/reconstruct.py, ops/gao.py);
+and every program of ``runtime/offline.py::sim_offline_jit`` — the eager
+per-column RanDouSha, triples and bits, with the faithful three-kernel
+open and its in-program robust fallback (ops/fused_open.py).
 """
 
 __version__ = "0.1.0"

@@ -113,11 +113,17 @@ def _declare(lib):
     lib.hb_mxu_fused2.argtypes = [vp, vp, vp, i64, i32, i32, i32, i32, i32,
                                   vp]
     lib.hb_mxu_redc.argtypes = [vp, vp, i64, vp]
+    lib.hb_mul_add_packed.argtypes = [vp, vp, vp, vp, i64, vp]
+    fused = (lib.hb_open_fused_k1, lib.hb_open_fused_k2,
+             lib.hb_open_fused_k3)
+    for fn in fused:
+        fn.argtypes = [vp, vp, vp, vp, i32, i32, i64, i32, i32, init, i32,
+                       vp]
     for fn in (lib.hb_open_direct, lib.hb_band_matmul, lib.hb_rand_limbs,
                lib.hb_randousha_deal, lib.hb_randousha_extract,
                lib.hb_mul_add_packed4, lib.hb_sub_bcast_packed4,
                lib.hb_mont_mul, lib.hb_fp_matmul_cios, lib.hb_mxu_fused2,
-               lib.hb_mxu_redc):
+               lib.hb_mxu_redc, lib.hb_mul_add_packed) + fused:
         fn.restype = ctypes.c_int
 
 

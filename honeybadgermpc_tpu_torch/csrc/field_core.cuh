@@ -5,9 +5,9 @@
 // CUDA twin of the plain-tensor core in ops/fused_open.py and
 // ops/montgomery.py, which in turn mirror the reference's device helpers
 // (honeybadgermpc_tpu/ops/fused_open.py: _planes_of_packed/_balance_bytes,
-// _band_dot_fold, _fold_reduce_bal, _pack16; ops/mxu_matmul.py: _redc_step;
-// ops/pallas_field.py: _threefry2x32, _redc384_reg). Every function here
-// reproduces that arithmetic bit for bit in uint32 registers:
+// _band_dot_fold, _fold_reduce_bal, _pack16, _mismatch; ops/mxu_matmul.py:
+// _redc_step; ops/pallas_field.py: _threefry2x32, _redc384_reg). Every
+// function here reproduces that arithmetic bit for bit in uint32 registers:
 //
 //   balance_word     4 bytes of a packed word -> 4 balanced int8 digits,
 //                    threading the carry of the base-256 balancing chain
@@ -17,6 +17,7 @@
 //   fold_reduce_bal  32 biased diagonals -> 19 carry-save limbs -> two
 //                    16-bit REDC rounds -> conditional subtract -> 16 limbs
 //   pack16           16 limbs -> 8 packed words
+//   mismatch         predicted vs received share, any word differs
 //   threefry2x32     Threefry-2x32, 20 rounds
 //   redc384          24 halfwords (384 bits) -> 9 REDC rounds -> 16 limbs
 //
@@ -260,6 +261,16 @@ __device__ __forceinline__ void pack16(const uint32_t (&limbs)[L],
 #pragma unroll
   for (int j = 0; j < PL; ++j)
     words[j] = limbs[2 * j] | (limbs[2 * j + 1] << 16);
+}
+
+// One validation point of the reference's _mismatch: does the predicted
+// share differ from the received one in any packed word?
+__device__ __forceinline__ bool mismatch(const uint32_t (&pred)[PL],
+                                         const uint32_t (&recv)[PL]) {
+  uint32_t diff = 0;
+#pragma unroll
+  for (int w = 0; w < PL; ++w) diff |= pred[w] ^ recv[w];
+  return diff != 0u;
 }
 
 // ---------------------------------------------------------------------------

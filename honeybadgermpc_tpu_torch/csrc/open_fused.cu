@@ -1,0 +1,241 @@
+// open_fused: the faithful n-party batch open as three kernels.
+//
+// Replaces the TPU kernels honeybadgermpc_tpu/ops/fused_open.py::_k1_kernel,
+// _k2_kernel and _k3_kernel (called through _open_calls). Same functions,
+// for packed shares [PL, n, k*C] (party p's chunk c holds the k coefficients
+// at b = i*C + c):
+//
+//   K1  encode   lane (p, c): the k coefficients of party p's chunk c,
+//                contracted with the encode band at all n points
+//                -> cols [PL, n_src, n_dst, C]
+//   K2  R1       lane (j, c): the first k sources' columns received by
+//                destination j, contracted with [lam(points[k:]) | lam0]:
+//                column nv (lam0) is psi_j(0) -> vals [PL, n, C]; columns
+//                0..nv-1 predict the other n-k sources' columns, compared
+//                with the received ones; mismatches go to errs[j], the
+//                DESTINATION (the direct open charges the source)
+//   K3  R2       lane c: the first k psi values, contracted with
+//                [Minv | lam(points[k:])]: columns 0..k-1 are the k secret
+//                coefficients -> sec [PL, k, C]; columns k..n-1 predict
+//                the other psi values; mismatches go to errs[0]
+//
+// In the simulation every destination's R2 input is the same gathered
+// vector, so K3 decodes it once (lanes = chunks, not destinations x
+// chunks); the caller broadcasts the secrets and charges errs[0] to every
+// destination. That is the function the reference computes with n
+// identical decodes.
+//
+// What bounds them on an H100: operations. Per lane the int8 dot is
+// ncol columns x 32 diagonals x 32k digits (K1 at n=64, k=22: 1.4 M MAC
+// against 32k bytes read and 32n written), far above the card's int8
+// ridge; the fold/REDC epilogue (CUDA cores, about 450 instructions per
+// lane and column) comes on top of the dot.
+//
+// Design: the direct open's (csrc/open_direct.cu). A block owns TL lanes
+// and WG column slots; it builds its lanes' balanced digit planes once in
+// shared memory; every warp then walks its slot's columns with no block
+// barrier: band fragments from device memory one k-step ahead,
+// mma.sync.m16n8k32.s8, a per-warp transpose to one lane per thread, the
+// fold/REDC epilogue in registers, then a store or a compare. The three
+// stages differ only in how a lane finds its k operands, what a column
+// does with its result, and where mismatches are charged:
+//
+//   operand i, word w of lane g = src[w*sw + (g / C)*sp + i*si + g % C]
+//
+// Each thread keeps its mismatch count in a register and adds it to the
+// global counter with one atomicAdd at the end, when it is not 0 (honest
+// shares: no atomics). Integer adds: order-free.
+#include "field_core.cuh"
+
+namespace hb {
+
+struct LaneMap {
+  long long nlanes;   // lanes of the launch
+  long long C;        // chunks per group of lanes
+  long long sw;       // word-plane stride of src
+  long long sp;       // stride of one lane group (source or destination)
+  long long si;       // stride of one operand
+};
+
+template <int STAGE>
+__device__ __forceinline__ void open_fused_body(
+    unsigned char* smem, const uint32_t* __restrict__ src,
+    const int4* __restrict__ band, uint32_t* __restrict__ out,
+    int* __restrict__ errs, int n, int k, int ncol, LaneMap m, int tl,
+    const FoldConst& fc) {
+  const int wg = blockDim.x / tl;
+  const int tid = threadIdx.x;
+  const int laneid = tid & 31;
+  const int slot = tid / tl;               // column slot of this warp
+  const int lane = tid - slot * tl;        // lane within the block
+  const long long g = static_cast<long long>(blockIdx.x) * tl + lane;
+  const bool valid = g < m.nlanes;
+  const long long grp = valid ? g / m.C : 0;  // source (K1), dst (K2)
+  const long long c = valid ? g - grp * m.C : 0;
+  const size_t base = static_cast<size_t>(grp * m.sp + c);
+  const int nv = n - k;
+  const int stride = tl + 8;
+  const BandSmem s = band_smem_carve(smem, k, tl, wg);
+  int* s_d = s.stage + (tid >> 5) * 32 * D_STRIDE;
+
+  // digit planes of the lane's k operands; slot j takes operands
+  // j, j+wg, ...
+  for (int i = slot; i < k; i += wg) {
+    uint32_t carry = 0;
+#pragma unroll
+    for (int w = 0; w < PL; ++w) {
+      const uint32_t word =
+          valid ? src[static_cast<size_t>(w) * m.sw + base +
+                      static_cast<size_t>(i) * m.si]
+                : 0u;
+      s.planes[(i * PL + w) * stride + lane] = balance_word(word, carry);
+    }
+  }
+
+  __syncthreads();                         // planes are ready
+
+  int bad = 0;
+  for (int col = slot; col < ncol; col += wg) {
+    // the operand this column's prediction is checked against, if any
+    int cmp = -1;
+    if (STAGE == 2 && col < nv) cmp = k + col;
+    if (STAGE == 3 && col >= k) cmp = col;
+    uint32_t recv[PL];
+#pragma unroll
+    for (int w = 0; w < PL; ++w)
+      recv[w] = (valid && cmp >= 0)
+                    ? src[static_cast<size_t>(w) * m.sw + base +
+                          static_cast<size_t>(cmp) * m.si]
+                    : 0u;
+
+    int acc[2][4][4];
+    band_mma_column(acc, s.planes, stride, lane - laneid,
+                    band + static_cast<size_t>(col) * k * 64, k, laneid);
+    int32_t ds[NBAL];
+    uint32_t limbs[L], words[PL];
+    band_mma_diagonals(acc, s_d, laneid, ds);
+    fold_reduce_bal(ds, fc, limbs);
+    pack16(limbs, words);
+
+    if (!valid) continue;
+    if (cmp >= 0) {
+      bad += mismatch(words, recv) ? 1 : 0;
+      continue;
+    }
+    size_t at, plane;
+    if (STAGE == 1) {                      // cols [PL, src, dst, C]
+      at = (static_cast<size_t>(grp) * n + col) * m.C + c;
+      plane = static_cast<size_t>(n) * n * m.C;
+    } else if (STAGE == 2) {               // vals [PL, n, C]: lane g
+      at = static_cast<size_t>(g);
+      plane = static_cast<size_t>(n) * m.C;
+    } else {                               // sec [PL, k, C]
+      at = static_cast<size_t>(col) * m.C + c;
+      plane = static_cast<size_t>(k) * m.C;
+    }
+#pragma unroll
+    for (int w = 0; w < PL; ++w) out[w * plane + at] = words[w];
+  }
+  if (bad) atomicAdd(&errs[STAGE == 2 ? grp : 0], bad);
+}
+
+__global__ void open_fused_k1_kernel(const uint32_t* __restrict__ src,
+                                     const int4* __restrict__ band,
+                                     uint32_t* __restrict__ out, int n,
+                                     int k, LaneMap m, int tl, FoldConst fc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  open_fused_body<1>(smem, src, band, out, nullptr, n, k, n, m, tl, fc);
+}
+
+__global__ void open_fused_k2_kernel(const uint32_t* __restrict__ src,
+                                     const int4* __restrict__ band,
+                                     uint32_t* __restrict__ out,
+                                     int* __restrict__ errs, int n, int k,
+                                     LaneMap m, int tl, FoldConst fc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  open_fused_body<2>(smem, src, band, out, errs, n, k, n - k + 1, m, tl,
+                     fc);
+}
+
+__global__ void open_fused_k3_kernel(const uint32_t* __restrict__ src,
+                                     const int4* __restrict__ band,
+                                     uint32_t* __restrict__ out,
+                                     int* __restrict__ errs, int n, int k,
+                                     LaneMap m, int tl, FoldConst fc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  open_fused_body<3>(smem, src, band, out, errs, n, k, n, m, tl, fc);
+}
+
+// Dynamic shared memory of a launch, allowed above 48 KB for `kernel`.
+template <typename Kernel>
+int prepare(Kernel kernel, int k, int tl, int wg, size_t* smem) {
+  *smem = band_smem_bytes(k, tl, wg, 0);
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(*smem)));
+}
+
+FoldConst fold_const(const uint32_t* init, int bias) {
+  FoldConst fc;
+  for (int j = 0; j < NL; ++j) fc.init[j] = init[j];
+  fc.bias = bias;
+  return fc;
+}
+
+}  // namespace hb
+
+// src, band, out, errs: device pointers (errs unused by K1); C: chunks.
+extern "C" int hb_open_fused_k1(const void* src, const void* band, void* out,
+                                void* errs, int n, int k, long long C,
+                                int tl, int wg, const uint32_t* init,
+                                int bias, void* stream) {
+  (void)errs;
+  const hb::LaneMap m{static_cast<long long>(n) * C, C,
+                      static_cast<long long>(n) * k * C,
+                      static_cast<long long>(k) * C, C};
+  size_t smem = 0;
+  const int rc = hb::prepare(hb::open_fused_k1_kernel, k, tl, wg, &smem);
+  if (rc != 0) return rc;
+  const unsigned grid = static_cast<unsigned>((m.nlanes + tl - 1) / tl);
+  hb::open_fused_k1_kernel<<<grid, tl * wg, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(src), static_cast<const int4*>(band),
+      static_cast<uint32_t*>(out), n, k, m, tl, hb::fold_const(init, bias));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int hb_open_fused_k2(const void* src, const void* band, void* out,
+                                void* errs, int n, int k, long long C,
+                                int tl, int wg, const uint32_t* init,
+                                int bias, void* stream) {
+  const hb::LaneMap m{static_cast<long long>(n) * C, C,
+                      static_cast<long long>(n) * n * C, C,
+                      static_cast<long long>(n) * C};
+  size_t smem = 0;
+  const int rc = hb::prepare(hb::open_fused_k2_kernel, k, tl, wg, &smem);
+  if (rc != 0) return rc;
+  const unsigned grid = static_cast<unsigned>((m.nlanes + tl - 1) / tl);
+  hb::open_fused_k2_kernel<<<grid, tl * wg, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(src), static_cast<const int4*>(band),
+      static_cast<uint32_t*>(out), static_cast<int*>(errs), n, k, m, tl,
+      hb::fold_const(init, bias));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int hb_open_fused_k3(const void* src, const void* band, void* out,
+                                void* errs, int n, int k, long long C,
+                                int tl, int wg, const uint32_t* init,
+                                int bias, void* stream) {
+  const hb::LaneMap m{C, C, static_cast<long long>(n) * C, 0, C};
+  size_t smem = 0;
+  const int rc = hb::prepare(hb::open_fused_k3_kernel, k, tl, wg, &smem);
+  if (rc != 0) return rc;
+  const unsigned grid = static_cast<unsigned>((m.nlanes + tl - 1) / tl);
+  hb::open_fused_k3_kernel<<<grid, tl * wg, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(src), static_cast<const int4*>(band),
+      static_cast<uint32_t*>(out), static_cast<int*>(errs), n, k, m, tl,
+      hb::fold_const(init, bias));
+  return static_cast<int>(cudaGetLastError());
+}

@@ -2,9 +2,10 @@
 
 So far: the field sampler ``rand_limbs`` (the reference's
 ``rand_limbs_pallas``), the packed 4D finish arithmetic
-``mul_add_packed4`` / ``sub_bcast_packed4``, the elementwise Montgomery
-multiply ``mont_mul_pallas`` and the CIOS matmul ``fp_matmul_pallas``; the
-flat packed variants of that module are not ported yet.
+``mul_add_packed4`` / ``sub_bcast_packed4``, its flat counterpart
+``mul_add_packed``, the elementwise Montgomery multiply
+``mont_mul_pallas`` and the CIOS matmul ``fp_matmul_pallas``; the flat
+``sub_bcast_packed`` (no caller in the reference) is not ported yet.
 
 Sampler: element e draws Threefry-2x32-20 with counters
 (s, e), s = 0..5, taking the words of each call in the order
@@ -18,8 +19,9 @@ On a CUDA device the sampler is the hand-written kernel
 
 Finish arithmetic: ``(a*b + c) mod p`` and ``(a - b) mod p`` on PACKED
 words in the extraction's native layout ``[PL, n, R, S]``, the two
-elementwise passes of the triple finish. On CUDA tensors they are the two
-kernels of ``csrc/packed_arith.cu``; the plain versions go through
+elementwise passes of the packed triple finish, and ``(a*b + c) mod p`` on
+flat packed words ``[PL, B]`` (the unpacked finish). On CUDA tensors they
+are the kernels of ``csrc/packed_arith.cu``; the plain versions go through
 ``unpack_limbs`` and ``ops/montgomery.py``.
 
 Elementwise multiply and CIOS matmul: ``mont_mul_pallas`` (the kernel
@@ -46,6 +48,7 @@ _M32 = 0xFFFFFFFF
 launches = 0                # rand_limbs
 launches_mul_add4 = 0       # mul_add_packed4
 launches_sub_bcast4 = 0     # sub_bcast_packed4
+launches_mul_add = 0        # mul_add_packed
 launches_mont_mul = 0       # mont_mul_pallas
 launches_matmul = 0         # fp_matmul_pallas
 
@@ -259,6 +262,48 @@ def sub_bcast_packed4(a, b):
     if b.is_cuda:
         return _sub_bcast_packed4_cuda(a, b)
     return _sub_bcast_packed4_plain(a, b)
+
+
+def _mul_add_packed_plain(a, b, c, chunk: int = 1 << 20):
+    """Plain PyTorch version of mul_add_packed: [PL, B] each -> [PL, B],
+    `chunk` elements at a time (the int64 carry-save accumulator is 17
+    words per element)."""
+    outs = []
+    for j in range(0, a.shape[1], chunk):
+        la, lb, lc = (unpack_limbs(x[:, j:j + chunk]) for x in (a, b, c))
+        outs.append(pack_limbs(mont.add_mod(mont._mont_mul_plain(la, lb),
+                                             lc)))
+    return torch.cat(outs, dim=1)
+
+
+def mul_add_packed(a, b, c):
+    """(a*b + c) mod p elementwise (Montgomery product) on flat PACKED
+    words int32 [PL, B] -> [PL, B]: csrc/packed_arith.cu::
+    mul_add_packed_kernel on CUDA tensors, the plain version on CPU ones."""
+    global launches_mul_add
+    for x, name in ((a, "a"), (b, "b"), (c, "c")):
+        if x.dtype != torch.int32 or x.dim() != 2 or x.shape[0] != PL:
+            raise ValueError(f"{name} must be int32 [{PL}, B], got "
+                             f"{x.dtype} {tuple(x.shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not (a.shape == b.shape == c.shape) \
+            or not (a.device == b.device == c.device):
+        raise ValueError("a, b, c must share one shape and one device")
+    if not a.is_cuda:
+        return _mul_add_packed_plain(a, b, c)
+    from .._build import lib
+    out = torch.empty_like(a)
+    B = a.shape[1]
+    if B == 0:
+        return out
+    rc = lib().hb_mul_add_packed(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                                 out.data_ptr(), B, _launch_stream(a))
+    launches_mul_add += 1
+    if rc != 0:
+        raise RuntimeError(
+            f"mul_add_packed kernel launch failed: CUDA error {rc}")
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -199,9 +199,21 @@ class FpArray:
     def __neg__(self):
         return FpArray(mont.neg_mod(self.limbs))
 
+    def square(self):
+        return FpArray(mont.mont_sqr(self.limbs))
+
     def inv(self):
         """Elementwise inverse (Fermat; inv(0) = 0)."""
         return FpArray(mont.inv_mod(self.limbs))
+
+    def pow_static(self, e: int):
+        return FpArray(mont.pow_const(self.limbs, e))
+
+    def sqrt(self):
+        """(root, has_root mask): the constant-structure Tonelli-Shanks of
+        ops/montgomery.py::sqrt_mod."""
+        r, ok = mont.sqrt_mod(self.limbs)
+        return FpArray(r), ok
 
     # -- predicates --------------------------------------------------------
     def is_zero(self):

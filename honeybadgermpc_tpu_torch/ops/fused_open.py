@@ -1,9 +1,10 @@
 """Shared arithmetic core of the folded-band kernels, and the packed format.
 
-Counterpart of the core of ``honeybadgermpc_tpu/ops/fused_open.py`` (not of
-its three-kernel faithful open, which is not ported yet). Every
+Counterpart of ``honeybadgermpc_tpu/ops/fused_open.py``: the shared core
+of the folded-band kernels, the packed format, and the faithful
+three-kernel n-party open (``sim_open_fused_packed``, at the end). Every
 band kernel of the port — the direct n-party open, the Vandermonde band
-matmul — computes
+matmul, the three kernels of the faithful open — computes
 
     balanced base-256 int8 digit planes of the packed operand
       -> int8 x int8 -> int32 dot against a host-folded int8 band
@@ -403,3 +404,270 @@ def _band_dot_fold(w_blk, planes, ncp, init_limbs, bias):
     d = _int_dot(w_blk[:, :planes.shape[0]], planes)
     ds = [d[r * ncp:(r + 1) * ncp] for r in range(NBAL)]
     return _fold_reduce_bal(ds, init_limbs, bias)
+
+
+def _mismatch(pred, recv):
+    """pred, recv: packed int32 [PL, nv, lanes] -> int32 [lanes]: the
+    number of validation points whose share differs in any word. The CUDA
+    twin is field_core.cuh's ``mismatch``."""
+    diff = torch.zeros_like(pred[0])
+    for w in range(PL):
+        diff = diff | (pred[w] ^ recv[w])
+    return (diff != 0).sum(0).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# The faithful three-kernel open
+#
+#   K1 encode   party p's chunk c holds the k coefficients view[:, p, :, c];
+#               predict its columns at all n points -> cols [PL, src, dst, C]
+#   K2 R1       destination j decodes psi_j(0) of chunk c from the first k
+#               sources' columns and validates the re-encoding against the
+#               other n-k -> vals [PL, n, C], mismatches charged to j
+#   K3 R2       the k secret coefficients of chunk c from the first k psi
+#               values, validated against the other n-k -> secrets
+#               [PL, k, C] and one mismatch total, charged to every
+#               destination
+#
+# In the simulation every destination's K3 input is the same gathered
+# vector, so K3 decodes it once: the secrets are one copy and every
+# destination is charged the same count, which is the function the
+# reference computes with one decode per destination. No chunk padding:
+# the kernels take any chunk count C and mask their ragged edge (the
+# reference pads C to a multiple of 128 for its BlockSpecs; zero chunks
+# are valid sharings, so the padding changes no secret and no count).
+# ---------------------------------------------------------------------------
+
+launches_k1 = 0       # times each CUDA kernel was launched (and nowhere else)
+launches_k2 = 0
+launches_k3 = 0
+# times a plain version of K1-K3 ran on a CUDA tensor: the card's paths
+# must keep this at 0 (only a comparison against the kernels may move it)
+plain_calls_on_cuda = 0
+_PLAIN_LANES = 1 << 15     # lanes per step of the plain versions
+
+
+@functools.lru_cache(maxsize=None)
+def _open_bands(points: tuple, k: int, device: torch.device):
+    """The three bands on `device`: ((reference-layout band [NBAL*ncp,
+    kcols] int8, ncp, kernel-layout band or None), ...) for K1, K2, K3,
+    plus the fold constants. The kernel layout (``_kernel_band``) exists
+    for CUDA devices only, cut to the columns each kernel walks."""
+    n = len(points)
+    enc, r1, r2, _, _ = _bands_np(points, k)
+    ncols = (n, n - k + 1, n)
+    out = []
+    for (band, ncp), ncol in zip((enc, r1, r2), ncols):
+        ref = torch.from_numpy(np.ascontiguousarray(band[0])).to(device)
+        kern = None
+        if device.type == "cuda":
+            kern = torch.from_numpy(np.ascontiguousarray(
+                _kernel_band(band[0], ncp, k)[:ncol])).to(device)
+        out.append((ref, ncp, kern))
+    return tuple(out), _bal_fold_init(k), _bal_bias(k)
+
+
+def _count_plain(x):
+    global plain_calls_on_cuda
+    if x.is_cuda:
+        plain_calls_on_cuda += 1
+
+
+def _k1_plain(view, points: tuple):
+    """Plain version of K1: view int32 [PL, n, k, C] -> predicted columns
+    int32 [PL, n_src, n_dst, C]."""
+    _count_plain(view)
+    _, n, k, C = view.shape
+    ((band, ncp, _), _, _), init, bias = _open_bands(points, k, view.device)
+    cols = torch.empty((PL, n, n, C), dtype=torch.int32, device=view.device)
+    for p in range(n):
+        for c0 in range(0, C, _PLAIN_LANES):
+            c1 = min(C, c0 + _PLAIN_LANES)
+            planes = _planes_of_packed(view[:, p, :, c0:c1])
+            out = _pack16(_band_dot_fold(band, planes, ncp, init, bias))
+            cols[:, p, :, c0:c1] = out[:, :n]
+    return cols
+
+
+def _k2_plain(cols, points: tuple, k: int):
+    """Plain version of K2: cols int32 [PL, n_src, n_dst, C] -> (vals int32
+    [PL, n, C] = psi_j(0) of every chunk, errs int32 [n] per destination)."""
+    _count_plain(cols)
+    _, n, _, C = cols.shape
+    nv = n - k
+    (_, (band, ncp, _), _), init, bias = _open_bands(points, k, cols.device)
+    lanes = cols.reshape(PL, n, n * C)          # lane j*C + c
+    vals = torch.empty((PL, n * C), dtype=torch.int32, device=cols.device)
+    bad = torch.empty((n * C,), dtype=torch.int32, device=cols.device)
+    for l0 in range(0, n * C, _PLAIN_LANES):
+        l1 = min(n * C, l0 + _PLAIN_LANES)
+        planes = _planes_of_packed(lanes[:, :k, l0:l1])
+        out = _pack16(_band_dot_fold(band, planes, ncp, init, bias))
+        vals[:, l0:l1] = out[:, nv]
+        bad[l0:l1] = _mismatch(out[:, :nv], lanes[:, k:, l0:l1])
+    return vals.reshape(PL, n, C), bad.reshape(n, C).sum(1).to(torch.int32)
+
+
+def _k3_plain(vals, points: tuple, k: int):
+    """Plain version of K3: vals int32 [PL, n, C] -> (secrets int32
+    [PL, k, C], errs int32 [1]: the mismatches of the one decode, which
+    every destination is charged)."""
+    _count_plain(vals)
+    _, n, C = vals.shape
+    nv = n - k
+    (_, _, (band, ncp, _)), init, bias = _open_bands(points, k, vals.device)
+    sec = torch.empty((PL, k, C), dtype=torch.int32, device=vals.device)
+    bad = torch.zeros((1,), dtype=torch.int64, device=vals.device)
+    for c0 in range(0, C, _PLAIN_LANES):
+        c1 = min(C, c0 + _PLAIN_LANES)
+        planes = _planes_of_packed(vals[:, :k, c0:c1])
+        out = _pack16(_band_dot_fold(band, planes, ncp, init, bias))
+        sec[:, :, c0:c1] = out[:, :k]
+        bad += _mismatch(out[:, k:k + nv], vals[:, k:, c0:c1]).sum()
+    return sec, bad.to(torch.int32)
+
+
+def _open_fused_cuda(stage: int, src, points: tuple, k: int, out_shape,
+                     errs_len: int):
+    """Launch stage `stage` (1, 2, 3) of csrc/open_fused.cu on src (CUDA)
+    -> (out int32 `out_shape`, errs int32 [errs_len] or None)."""
+    global launches_k1, launches_k2, launches_k3
+    from .._build import lib
+    n = len(points)
+    kern = _open_bands(points, k, src.device)[0][stage - 1][2]
+    tl, wg = _smem_plan(k)
+    init, bias = _fold_consts(k)
+    C = src.shape[-1]
+    out = torch.empty(out_shape, dtype=torch.int32, device=src.device)
+    errs = None if errs_len == 0 else torch.zeros(
+        errs_len, dtype=torch.int32, device=src.device)
+    fn = (lib().hb_open_fused_k1, lib().hb_open_fused_k2,
+          lib().hb_open_fused_k3)[stage - 1]
+    rc = fn(src.data_ptr(), kern.data_ptr(), out.data_ptr(),
+            0 if errs is None else errs.data_ptr(), n, k, C, tl, wg, init,
+            bias, _launch_stream(src))
+    if stage == 1:
+        launches_k1 += 1
+    elif stage == 2:
+        launches_k2 += 1
+    else:
+        launches_k3 += 1
+    if rc != 0:
+        raise RuntimeError(
+            f"open_fused K{stage} kernel launch failed: CUDA error {rc}")
+    return out, errs
+
+
+def _check_stage_input(x, name: str, dims: int):
+    if x.dtype != torch.int32 or x.dim() != dims or x.shape[0] != PL:
+        raise ValueError(f"{name} must be int32 [{PL}, ...] of {dims} dims, "
+                         f"got {x.dtype} {tuple(x.shape)}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def open_k1(view, points: tuple):
+    """K1, encode: view int32 [PL, n, k, C] (party p's chunk c holds the k
+    coefficients view[:, p, :, c]) -> cols int32 [PL, n_src, n_dst, C].
+    csrc/open_fused.cu on a CUDA tensor, the plain version on a CPU one."""
+    _check_stage_input(view, "view", 4)
+    _, n, k, C = view.shape
+    if view.is_cuda:
+        return _open_fused_cuda(1, view, points, k, (PL, n, n, C), 0)[0]
+    return _k1_plain(view, points)
+
+
+def open_k2(cols, points: tuple, k: int):
+    """K2, R1 decode and validate: cols int32 [PL, n_src, n_dst, C] ->
+    (vals int32 [PL, n, C], errs int32 [n] charged to the destination)."""
+    _check_stage_input(cols, "cols", 4)
+    _, n, _, C = cols.shape
+    if cols.is_cuda:
+        return _open_fused_cuda(2, cols, points, k, (PL, n, C), n)
+    return _k2_plain(cols, points, k)
+
+
+def open_k3(vals, points: tuple, k: int):
+    """K3, R2 decode and validate: vals int32 [PL, n, C] -> (secrets int32
+    [PL, k, C], errs int32 [1], the count every destination is charged)."""
+    _check_stage_input(vals, "vals", 3)
+    C = vals.shape[-1]
+    if vals.is_cuda:
+        return _open_fused_cuda(3, vals, points, k, (PL, k, C), 1)
+    return _k3_plain(vals, points, k)
+
+
+@functools.lru_cache(maxsize=None)
+def _open_calls(n: int, k: int, cpad: int, points: tuple):
+    """The three-kernel open of packed shares [PL, n, k*cpad] (chunk count
+    cpad = C, unpadded) as a plain callable on the device of its argument:
+    run(packed) -> (secrets int32 [PL, k*cpad], ONE copy — every
+    destination decodes the same values —, nerr int32 [n]: R1 counts per
+    destination plus the R2 count, which every destination is charged).
+    run.parts = (K1, K2, K3) for tests and timing."""
+    if k > KMAX:
+        raise ValueError(f"the balanced scheme holds k <= {KMAX}, got {k}")
+    if len(points) != n:
+        raise ValueError(f"{len(points)} points for n={n} parties")
+
+    def k1(view):
+        return open_k1(view, points)
+
+    def k2(cols):
+        return open_k2(cols, points, k)
+
+    def k3(vals):
+        return open_k3(vals, points, k)
+
+    def run(packed_kc):
+        cols = k1(packed_kc.reshape(PL, n, k, cpad))
+        vals, errs1 = k2(cols)
+        del cols
+        sec, errs2 = k3(vals)
+        return sec.reshape(PL, k * cpad), errs1 + errs2
+
+    run.parts = (k1, k2, k3)
+    return run
+
+
+def sim_open_fused_packed(packed, n: int, t: int, points: tuple,
+                          robust: bool = True):
+    """The faithful three-kernel open on PACKED shares int32 [PL, n, B]
+    (the dealer's at-rest format; B % (t+1) == 0) -> (secrets PACKED
+    [PL, n, B], nerr int32 [n], mismatches charged to the destination).
+    Without a fallback the secrets are the broadcast view of one copy.
+
+    robust=True: when any mismatch is seen (one host read of nerr.sum(),
+    the only host sync the open adds), the whole open is redone by the
+    generic two-round program with its Gao fallback
+    (parallel/reconstruct.py::batch_reconstruct) on the unpacked shares,
+    whose secrets and per-destination counts are returned instead: the
+    reference's lax.cond(total == 0, fast, slow)."""
+    k = t + 1
+    if packed.dtype != torch.int32 or packed.dim() != 3 \
+            or packed.shape[0] != PL or packed.shape[1] != n:
+        raise ValueError(f"packed must be int32 [{PL}, {n}, B], got "
+                         f"{packed.dtype} {tuple(packed.shape)}")
+    B = packed.shape[-1]
+    if B % k:
+        raise ValueError(f"batch {B} is not a multiple of t+1 = {k}")
+    points = tuple(int(x) % P for x in points)
+    run = _open_calls(n, k, B // k, points)
+    sec, nerr = run(packed.contiguous())
+    if robust and int(nerr.sum()) != 0:
+        from ..parallel.mesh import SimBackend
+        from ..parallel.reconstruct import batch_reconstruct
+        from .fparray import FpArray
+        sec2, nerr2 = batch_reconstruct(SimBackend(n),
+                                        FpArray(unpack_limbs(packed)), n, t,
+                                        robust=True)
+        return pack_limbs(sec2.limbs), nerr2.to(torch.int32)
+    return sec[:, None, :].expand(PL, n, B), nerr
+
+
+def sim_open_fused(shares_limbs, n: int, t: int, points: tuple,
+                   robust: bool = True):
+    """The three-kernel open of shares int32 [L, n, B] (B % (t+1) == 0) ->
+    (secrets PACKED [PL, n, B], nerr [n]). See sim_open_fused_packed."""
+    return sim_open_fused_packed(pack_limbs(shares_limbs), n, t, points,
+                                 robust=robust)

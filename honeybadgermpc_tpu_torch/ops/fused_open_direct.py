@@ -44,6 +44,7 @@ ZG = 8            # output columns per band group (the reference's layout)
 KMAX_DIRECT = 128
 
 launches = 0      # times the CUDA kernel was launched (and nowhere else)
+plain_calls_on_cuda = 0   # times the plain version ran on a CUDA tensor
 
 
 def direct_fits(n: int, k: int) -> bool:
@@ -98,6 +99,9 @@ def _open_direct_plain(packed, n: int, k: int, points: tuple):
     """Plain PyTorch version of the direct open: packed int32 [PL, n, B]
     -> (secrets int32 [PL, B], nerr int32 [n]). Same band, same digit
     planes, same fold/REDC arithmetic as the kernel, bit for bit."""
+    global plain_calls_on_cuda
+    if packed.is_cuda:
+        plain_calls_on_cuda += 1
     nv = n - k
     band, _ = _direct_band_device(points, k, packed.device)
     init = _bal_fold_init(k)

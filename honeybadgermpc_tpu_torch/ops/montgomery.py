@@ -262,3 +262,37 @@ def inv_mod(a):
     """Batched modular inverse via Fermat: a^(p-2); inv(0) = 0 (callers
     mask)."""
     return pow_const(a, P - 2)
+
+
+# Tonelli-Shanks static data: p - 1 = q * 2^s with s = 32; nonresidue z = 5.
+_TS_S = 32
+_TS_Q = (P - 1) >> _TS_S
+_TS_ZQ = pow(5, _TS_Q, P)
+
+
+def sqrt_mod(a):
+    """Batched constant-structure Tonelli-Shanks (cf. RFC 9380 G.4), step
+    for step the reference's: t = a^q, r = a^((q+1)/2), c = z^q; then for
+    i = s, s-1, ..., 2: b = t squared i-2 times; where b != 1, r *= c and
+    t *= c^2; c = c^2. Returns (root, has_root_mask); root*root == a where
+    the mask is set. The root the algorithm lands on (not just any square
+    root) is part of the function: generate_bits takes its sign from it.
+    Every product is a mont_mul, so on a CUDA tensor each one launches the
+    elementwise kernel."""
+    shape = _bshape(a)
+    one = one_mont(shape, a.device)
+    t = pow_const(a, _TS_Q)
+    r = pow_const(a, (_TS_Q + 1) // 2)
+    c = to_mont(const_stack(int_to_limbs(_TS_ZQ), shape, a.device))
+    for idx in range(_TS_S - 1):
+        i = _TS_S - idx                    # i runs s, s-1, ..., 2
+        b = t
+        for _ in range(i - 2):
+            b = mont_sqr(b)
+        need = ~eq_mask(b, one)
+        c2 = mont_sqr(c)
+        r = select(need, mont_mul(r, c), r)
+        t = select(need, mont_mul(t, c2), t)
+        c = c2
+    has_root = eq_mask(mont_sqr(r), a) | is_zero_mask(a)
+    return r, has_root

@@ -34,7 +34,8 @@ import torch
 
 from ..ops.fparray import FpArray
 from ..ops.fpmatmul import decode_validate_matmul
-from ..ops.fused_open import pack_limbs, unpack_limbs
+from ..ops.fused_open import (pack_limbs, sim_open_fused_packed,
+                              unpack_limbs)
 from ..ops.fused_open_direct import direct_fits, sim_open_direct_packed
 from ..ops.gao import gao_robust_decode
 from ..ops.limbs import L, P
@@ -151,8 +152,10 @@ def _sim_reconstruct_packed_jit(n: int, t: int, use_omega_powers: bool,
     replicate=False additionally returns ONE secrets copy [PL, B] instead
     of the n-replicated view.
 
-    The other branch — the faithful three-kernel open with its in-graph
-    robust fallback — is not ported yet."""
+    Every other case is the faithful three-kernel open
+    (ops/fused_open.py::sim_open_fused_packed), with its robust fallback
+    when robust and fallback are both set; it returns the n-replicated
+    view whatever `replicate` says, as the reference's does."""
     enc = Encoding(n, use_omega_powers=use_omega_powers)
     points = tuple(int(x) % P for x in enc.points)
 
@@ -163,10 +166,11 @@ def _sim_reconstruct_packed_jit(n: int, t: int, use_omega_powers: bool,
 
         return run_direct
 
-    raise NotImplementedError(
-        "only the detect-only direct open (robust=True, fallback=False, "
-        "n > t+1 <= 128) is ported; the three-kernel fused open with the "
-        "robust fallback is not ported yet")
+    def run_packed(packed):
+        return sim_open_fused_packed(packed, n, t, points,
+                                     robust=robust and fallback)
+
+    return run_packed
 
 
 @lru_cache(maxsize=None)
@@ -177,8 +181,9 @@ def _sim_reconstruct_jit(n: int, t: int, use_omega_powers: bool,
     -> kernel -> secrets PACKED [PL, n, B]; ``run.packed`` tells the
     caller to unpack), with the in-call Gao fallback when robust and
     fallback are both set; the generic two-round program otherwise. The
-    three-kernel open that the reference prefers for n % 8 == 0, t+1 <= 32
-    where the direct open does not fit is not ported yet."""
+    reference's branch between the two (its three-kernel open for
+    n % 8 == 0, t+1 <= 32 where the direct open does not fit) raises: the
+    direct open fits whenever t < n/3, so no protocol shape reaches it."""
     enc = Encoding(n, use_omega_powers=use_omega_powers)
     points = tuple(int(x) % P for x in enc.points)
     if direct_fits(n, t + 1):
@@ -189,8 +194,11 @@ def _sim_reconstruct_jit(n: int, t: int, use_omega_powers: bool,
         run_direct.packed = True
         return run_direct
     if n % 8 == 0 and t + 1 <= 32:
+        # the reference's next branch (its three-kernel open over limbs);
+        # unreachable for t < n/3, where the direct open always fits
         raise NotImplementedError(
-            "the three-kernel fused open (ops/fused_open.py) is not ported")
+            "the three-kernel open over limbs for n <= t+1 is not ported; "
+            "ops/fused_open.py::sim_open_fused serves packed shares")
 
     def run(limbs):
         secrets, nerr = batch_reconstruct(

@@ -142,10 +142,12 @@ def test_open_checks_its_input_and_unported_branches(honest):
                                                robust=True)
     sec_d, nerr_d = fod.sim_open_direct_packed(good, N, T, POINTS)
     assert torch.equal(sec_r, sec_d) and torch.equal(nerr_r, nerr_d)
-    with pytest.raises(NotImplementedError):
-        _sim_reconstruct_packed_jit(N, T, False, True)
-    with pytest.raises(NotImplementedError):
-        _sim_reconstruct_packed_jit(N, T, False, False, fallback=False)
+    # the other branches are the three-kernel open (same secrets; on
+    # honest shares no count, no fallback)
+    for args, kw in (((N, T, False, True), {}),
+                     ((N, T, False, False), {"fallback": False})):
+        sec_f, nerr_f = _sim_reconstruct_packed_jit(*args, **kw)(good)
+        assert torch.equal(sec_f, sec_d) and nerr_f.tolist() == [0] * N
     with pytest.raises(ValueError):
         fod.sim_open_direct_packed(good.to(torch.int64), N, T, POINTS)
     with pytest.raises(ValueError):

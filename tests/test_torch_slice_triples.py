@@ -174,12 +174,13 @@ def test_sim_backend_gate_and_unported_programs():
     with pytest.raises(AssertionError, match="sim-only"):
         offline.fused_randousha(OtherBackend(), N, T, K, (1, 2),
                                 device="cpu")
-    with pytest.raises(NotImplementedError):
-        offline.fused_generate_triples(SimBackend(N), N, T, K, (1, 2),
-                                       packed=False, device="cpu")
+    # formerly unported: the flat finish and the three programs now run
+    a, b, ab, ok = offline.fused_generate_triples(
+        SimBackend(N), N, T, K, (1, 2), packed=False, device="cpu")
+    assert bool(ok) and ab.shape == (N, N_OUT * K)
     for program in ("randousha", "generate_triples", "generate_bits"):
-        with pytest.raises(NotImplementedError):
-            offline.sim_offline_jit(program, N, T, K, device="cpu")
+        assert callable(offline.sim_offline_jit(program, N, T, K,
+                                                device="cpu"))
     with pytest.raises(KeyError):
         offline.sim_offline_jit("no_such_program", N, T, K, device="cpu")
     assert offline.sim_offline_jit("generate_triples_packed", N, T, K,
