@@ -21,14 +21,20 @@ n=64, t=21:
     in_graph_fallback)`` for randousha, generate_triples and generate_bits
     in both modes (90,112 double sharings, triples or bits per call): the
     fused pipelines, the eager per-column programs with detect-only opens,
-    and with the faithful three-kernel open and its in-program fallback.
+    and with the faithful three-kernel open and its in-program fallback;
+  * the coding layer and the NTL-compatible API — the reference bench's
+    grids of Vandermonde interpolation, NTT interpolation and evaluation
+    and random refinement, the omega-domain encode and FNT decode of
+    16,896 polynomials from 43 of 128 parties, and every ``ntl`` function,
+    among them ``vandermonde_batch_evaluate`` of 1,024 polynomials with 512
+    coefficients at 4 points (the fused 73-diagonal MXU kernel).
 
 The first run builds the kernels from ``honeybadgermpc_tpu_torch/csrc``
 into ``honeybadgermpc_tpu_torch/build``.
 
 Phases, each printing one JSON line; any failure exits non-zero:
   1 device    a CUDA card must be present; prints its name and power limit
-  2 build     compile and load the fifteen kernels
+  2 build     compile and load the sixteen kernels
   3 kernels   each kernel against its plain PyTorch version on the card,
               bit for bit, at small, unaligned and main-path shapes, with
               times and the computed bound
@@ -66,6 +72,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
  15 program fault     generate_triples with the fallback at k=16 and one
               party sending wrong shares of a*b + r: the outputs equal the
               honest run's, ok turns false
+ 16 coding kernels    rows 14 and 13 (mxu_fused, mxu_fused2) against their
+              plain versions on the card, bit for bit, at every window
+              fp_matmul routes to them (row 14: k 439-858 at n=4, 313-422
+              at n=8, 196-204 at n=16; row 13 k-streamed up to k=438), a
+              Python-int sample each, times and bounds; fp_matmul on CUDA
+              tensors at both sides of every window edge: no raise, the
+              routed kernel launched, no plain version on the card
+ 17 ntl       with the launch counts set to 0 just before: the bench grids
+              (vandermonde_batch_interpolate n=16/128/1024 x 8, NTT
+              interpolate/evaluate n=2^4..2^14 x 2^16/n, refine_randoms
+              n=4/16/64 x 512), Encoding(128, omega) encode and decode from
+              43 parties, every ntl function once (row 14 through
+              vandermonde_batch_evaluate), each against Python ints on a
+              sample; rates in the bench's units beside device-busy ms
 
 The last line of the output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -175,6 +195,7 @@ KERNEL_COUNTERS = {
     "mont_mul": (fk, "launches_mont_mul"),
     "fp_matmul_cios": (fk, "launches_matmul"),
     "mxu_fused2": (mxu, "launches_fused2"),
+    "mxu_fused": (mxu, "launches_fused"),
     "mxu_redc": (mxu, "launches_redc"),
     "open_fused_k1": (fo, "launches_k1"),
     "open_fused_k2": (fo, "launches_k2"),
@@ -997,7 +1018,7 @@ def phase_kernels_robust(dev):
     a = rand_field(dev, (55, 1), (2048, N))
     lag = dev_const(_lagrange_matrix_np, (pts,), dev)          # [L, 64, 64]
     diag = mxu._mxu_diagonals(a, lag)
-    got = mxu._redc_cuda(diag)
+    got = mxu._redc_cuda(diag, N)
     want = mxu._redc_diagonals(diag)
     sync()
     check(torch.equal(got, want), "mxu_redc != plain at B=2048 k=64 n=64")
@@ -1008,7 +1029,7 @@ def phase_kernels_robust(dev):
     vband = mxu._build_vband(lag)
     diags = itertools.cycle([diag, diag.roll(1, dims=1).contiguous()])
     times["mxu_redc"] = (          # two diagonal sets (92 MB) in turn
-        kernel_ms(lambda: mxu._redc_cuda(next(diags)), 50,
+        kernel_ms(lambda: mxu._redc_cuda(next(diags), N), 50,
                   "mxu_redc_kernel"),
         timed_once(lambda: mxu._redc_diagonals(diag)),
         redc_bound(2048 * N))
@@ -1033,7 +1054,7 @@ def phase_kernels_robust(dev):
         key = "mxu_fused2" if ncol < N else f"mxu_fused2_n{N}"
         times[key] = (
             kernel_ms(lambda: mxu._fused2_cuda(a, wd, r), 20,
-                      "mxu_fused2_kernel"),
+                      "Fold37"),
             timed_once(lambda: mxu._fused2_plain(a, wd, r)),
             fused2_bound(big, K, ncol, r))
 
@@ -1081,7 +1102,7 @@ def phase_kernels_robust(dev):
         a, v = rand_field(dev, (64, bb), (bb, k)), rand_field(dev, (65, n),
                                                                (k, n))
         diag = mxu._mxu_diagonals(a, v)
-        got = mxu._redc_cuda(diag)
+        got = mxu._redc_cuda(diag, k)
         check(torch.equal(got, mxu._redc_diagonals(diag)),
               f"mxu_redc != plain at {(bb, k, n)}")
         check_oracle(got.reshape(L, bb, n), a, v, "mxu_redc")
@@ -1575,8 +1596,313 @@ def phase_program_fault(dev):
         ms=secs * 1e3)
 
 
+# -- the coding layer: rows 13 and 14 against their plain versions ----------
+
+# row 14's windows (n -> contractions) and row 13's streamed shapes, PERF.md
+ROW14_SHAPES = ((4, 439), (4, 512), (4, 858), (8, 313), (8, 422),
+                (16, 196), (16, 204))
+ROW13_SHAPES = ((4, 92), (4, 256), (4, 438), (8, 312), (16, 195),
+                (22, 151), (32, 108))
+CODING_B = 16896                  # the reference bench's segment, 22 * 768
+# fp_matmul at a batch of 1024 on both sides of every window edge
+WINDOW_EDGES = ((4, 91), (4, 92), (4, 438), (4, 439), (4, 858), (4, 859),
+                (4, 3598), (4, 3599), (8, 312), (8, 313), (8, 422),
+                (8, 423), (16, 195), (16, 196), (16, 204), (16, 205),
+                (22, 151), (22, 152), (32, 108), (32, 109), (43, 80),
+                (43, 81), (64, 52), (64, 53))
+ROUTE_COUNTER = {"mxu2": "mxu_fused2", "mxu_fused": "mxu_fused",
+                 "mxu": "mxu_redc", "cios": "fp_matmul_cios"}
+
+
+def fused_bound(b, k, n):
+    """Reads a's and v's limbs, writes the limbs; the least int8 work of
+    the product convolution (37 x 37 digit products per operand and
+    output) on the tensor cores and the 73-diagonal REDC on the CUDA
+    cores, whichever is longer."""
+    npl = mxu.NPLANES
+    nbytes = 64 * (b * k + k * n + b * n)
+    dot_ms = 2 * b * n * npl * npl * k / INT8_OPS_PER_S * 1e3
+    fold_ms = REDC73_OPS * b * n / INT32_OPS_PER_S * 1e3
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = max(dot_ms, fold_ms)
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                           "operations")
+
+
+def phase_kernels_coding(dev):
+    """Rows 14 and 13 bit for bit against their plain versions on the card
+    at the windows fp_matmul routes to them, a Python-int sample each, times
+    and bounds; then fp_matmul on CUDA tensors at every window edge: no
+    raise, the routed kernel launched, no plain version on the card."""
+    from honeybadgermpc_tpu_torch.ops.fpmatmul import _route, fp_matmul
+    t0 = time.perf_counter()
+    err, shapes, times = {"mxu_fused": 0}, [], {}
+    for i, (n, k) in enumerate(ROW14_SHAPES):
+        for bb in ((1024, 1031)[i % 2], CODING_B):
+            if bb == CODING_B and (n, k) not in ((4, 512), (8, 313),
+                                                 (16, 204), (4, 858)):
+                continue
+            a = rand_field(dev, (80, bb + k), (bb, k))
+            v = rand_field(dev, (81, n + k), (k, n))
+            got = mxu._fused_cuda(a, v)
+            want = mxu._fused_plain(a, v)
+            sync()
+            check(torch.equal(got, want),
+                  f"mxu_fused != plain at B={bb} k={k} n={n}")
+            check_oracle(got, a, v, f"mxu_fused B={bb} k={k} n={n}")
+            err["mxu_fused"] = max(err["mxu_fused"], max_abs_err(got, want))
+            shapes.append(f"mxu_fused B={bb} k={k} n={n}")
+            if (bb, n, k) == (CODING_B, 4, 512):
+                times["mxu_fused"] = (
+                    kernel_ms(lambda: mxu._fused_cuda(a, v), 10, "Redc73"),
+                    timed_once(lambda: mxu._fused_plain(a, v)),
+                    fused_bound(bb, k, n))
+    for i, (n, k) in enumerate(ROW13_SHAPES + ((4, 438),)):
+        bb = CODING_B if i == len(ROW13_SHAPES) else (1024, 1031)[i % 2]
+        a = rand_field(dev, (82, bb + k), (bb, k))
+        v = rand_field(dev, (83, n + k), (k, n))
+        r = mxu._rounds_for(k)
+        wd = mxu._folded_band_digits(v, r)
+        got = mxu._fused2_cuda(a, wd, r)
+        want = mxu._fused2_plain(a, wd, r)
+        sync()
+        check(torch.equal(got, want),
+              f"mxu_fused2 != plain at B={bb} k={k} n={n}")
+        check_oracle(got, a, v, f"mxu_fused2 B={bb} k={k} n={n}")
+        err["mxu_fused2"] = max(err.get("mxu_fused2", 0),
+                                max_abs_err(got, want))
+        shapes.append(f"mxu_fused2 B={bb} k={k} n={n}")
+    times["mxu_fused2_streamed"] = (
+        kernel_ms(lambda: mxu._fused2_cuda(a, wd, r), 10, "Fold37"),
+        timed_once(lambda: mxu._fused2_plain(a, wd, r)),
+        fused2_bound(CODING_B, 438, 4, mxu._rounds_for(438)))
+
+    edges = []
+    for n, k in WINDOW_EDGES:
+        a = rand_field(dev, (84, k), (1024, k))
+        v = rand_field(dev, (85, n), (k, n))
+        route = _route(1024, k, n)
+        reset_launches()
+        out = fp_matmul(FpArray(a), FpArray(v))
+        sync()
+        moved = {name: c for name, c in read_launches().items() if c}
+        check(moved.get(ROUTE_COUNTER[route], 0) >= 1,
+              f"fp_matmul k={k} n={n}: route {route} launched nothing")
+        check(not any(moved.get(ROUTE_COUNTER[r], 0) for r in ROUTE_COUNTER
+                      if r != route),
+              f"fp_matmul k={k} n={n}: another matmul kernel ran: {moved}")
+        check(not any(read_plain().values()),
+              f"fp_matmul k={k} n={n}: a plain version ran on the card")
+        check_oracle(out.limbs, a, v, f"fp_matmul k={k} n={n}")
+        edges.append(f"n={n} k={k}: {route}")
+    say("coding_kernels_vs_plain", ok=True, tolerance="exact (torch.equal)",
+        shapes=shapes, fp_matmul_window_edges=edges,
+        timed_by={k: v[0][1] for k, v in times.items()},
+        seconds=round(time.perf_counter() - t0, 3))
+    return err, {k: (v[0][0], v[1], v[2]) for k, v in times.items()}
+
+
+# -- NTL and coding on the card ----------------------------------------------
+
+def _rate(fn, units, count, reps=5):
+    """Host-clock ms per call (mean of `reps` after a warm-up, each ending
+    in a synchronize), the rate in `units`, device-busy ms and launches of
+    one call from the profiler; where its trace holds no kernel, CUDA
+    events around one call instead (host gaps between launches
+    included). The launch counters are left as they were: timing
+    repeats are not the path's launches."""
+    saved = read_launches()
+    fn()
+    sync()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        sync()
+    ms = (time.perf_counter() - t) / reps * 1e3
+    busy, launches = device_busy_ms(fn)
+    out = {"ms_per_call": ms, units: count / ms * 1e3,
+           "device_busy_ms": busy, "kernel_launches": launches}
+    if launches == 0:
+        out["device_busy_ms"] = None
+        out["device_ms_cuda_events"] = timed_once(fn)
+    for name, (mod, attr) in KERNEL_COUNTERS.items():
+        setattr(mod, attr, saved[name])
+    return out
+
+
+def _int_rows(arr, rows):
+    return [[int(v) for v in arr[r].to_ints()] for r in rows]
+
+
+def _horner(coeffs, x):
+    acc = 0
+    for c in reversed(coeffs):
+        acc = (acc * x + c) % P
+    return acc
+
+
+def phase_ntl(dev):
+    """The reference bench's grids through the port's coding layer and
+    every ntl function once on CUDA tensors, each against Python ints on a
+    sample; vandermonde_batch_evaluate of 1024 polynomials with 512
+    coefficients at 4 points reaches row 14 through the entry point."""
+    from honeybadgermpc_tpu_torch import ntl
+    from honeybadgermpc_tpu_torch.ops import ntt
+    from honeybadgermpc_tpu_torch.ops.fpmatmul import \
+        vandermonde_batch_interpolate
+    from honeybadgermpc_tpu_torch.ops.rs import Encoding
+    from honeybadgermpc_tpu_torch.polynomial import get_omega_int
+    from honeybadgermpc_tpu_torch.runtime.refinement import (
+        refine_randoms, refine_randoms_host)
+    from honeybadgermpc_tpu_torch.field import GF
+    t0 = time.perf_counter()
+    reset_launches()
+    rates = {}
+    for n in (16, 128, 1024):
+        xs = list(range(1, n + 1))
+        ys = FpArray(rand_field(dev, (90, n), (8, n)))
+        c = vandermonde_batch_interpolate(xs, ys)
+        want = _int_rows(ys, [0, 7])
+        got = _int_rows(c, [0, 7])
+        for r in range(2):
+            for j in (0, n // 2, n - 1):
+                check(_horner(got[r], xs[j]) == want[r][j],
+                      f"vandermonde_batch_interpolate n={n}")
+        rates[f"lagrange_interpolate_n{n}"] = _rate(
+            lambda: vandermonde_batch_interpolate(xs, ys), "points_per_s",
+            8 * n)
+    for logn in (4, 8, 12, 14):
+        n = 1 << logn
+        batch = (1 << 16) // n
+        omega = get_omega_int(P, n, seed=0)
+        ys = FpArray(rand_field(dev, (91, n), (batch, n)))
+        coeffs = ntt.fft_interpolate(ys, omega)
+        evals = ntt.fft_evaluate(coeffs, omega, n)
+        check(torch.equal(evals.limbs, ys.limbs),
+              f"fft_evaluate(fft_interpolate(y)) != y at n={n}")
+        got = _int_rows(coeffs, [0, batch - 1])
+        want = _int_rows(ys, [0, batch - 1])
+        for r in range(2):
+            for j in (0, 1, n - 1):
+                check(_horner(got[r], pow(omega, j, P)) == want[r][j],
+                      f"fft_interpolate n={n}")
+        rates[f"fft_interpolate_n{n}"] = _rate(
+            lambda: ntt.fft_interpolate(ys, omega), "points_per_s",
+            batch * n)
+        rates[f"fft_evaluate_n{n}"] = _rate(
+            lambda: ntt.fft_evaluate(coeffs, omega, n), "points_per_s",
+            batch * n)
+    for n in (4, 16, 64):
+        t = (n - 1) // 3
+        k = n - t
+        shares = FpArray(rand_field(dev, (92, n), (512, k)))
+        out = refine_randoms(n, t, shares)
+        for r in (0, 511):
+            check(_int_rows(out, [r])[0] == refine_randoms_host(
+                n, t, GF(P), _int_rows(shares, [r])[0]),
+                f"refine_randoms n={n}")
+        rates[f"random_refinement_n{n}"] = _rate(
+            lambda: refine_randoms(n, t, shares), "outputs_per_s",
+            512 * (k - t))
+
+    enc = Encoding(128, use_omega_powers=True)
+    zs = tuple(range(0, 128, 3))                      # 43 parties
+    coeffs = FpArray(rand_field(dev, (93, 1), (CODING_B, len(zs))))
+    shares = enc.encode(coeffs)
+    sub = shares.take(list(zs), axis=1)
+    back = enc.decode(zs, sub)
+    check(torch.equal(back.limbs, coeffs.limbs),
+          "Encoding(128, omega): decode(encode(c)) != c")
+    row = _int_rows(coeffs, [CODING_B - 1])[0]
+    check(_int_rows(shares, [CODING_B - 1])[0][5] ==
+          _horner(row, enc.points[5]), "omega encode != Python ints")
+    rates["fnt_encode_n128"] = _rate(lambda: enc.encode(coeffs),
+                                     "polys_per_s", CODING_B)
+    rates["fnt_decode_n128_from43"] = _rate(lambda: enc.decode(zs, sub),
+                                            "polys_per_s", CODING_B)
+
+    # every ntl function once, against the host fallbacks and Python ints
+    rng = __import__("random").Random(2026)
+    pts = list(range(1, 6))
+    poly = [rng.randrange(P) for _ in range(5)]
+    vals = [ntl.evaluate(poly, x, P) for x in pts]
+    check(ntl.lagrange_interpolate(pts, vals, P) == poly,
+          "ntl.lagrange_interpolate")
+    check(ntl.vandermonde_inverse(pts, P) == [
+        ntl._lagrange_coeffs_host(pts, [int(i == j) for i in range(5)], P)
+        for j in range(5)], "ntl.vandermonde_inverse")
+    polys = [[rng.randrange(P) for _ in range(4)] for _ in range(3)]
+    evals = ntl.vandermonde_batch_evaluate(pts[:4], polys, P)
+    check(evals == [[ntl.evaluate(q, x, P) for x in pts[:4]] for q in polys],
+          "ntl.vandermonde_batch_evaluate (small)")
+    check(ntl.vandermonde_batch_interpolate(pts[:4], evals, P) == polys,
+          "ntl.vandermonde_batch_interpolate")
+    n = 8
+    omega = get_omega_int(P, n, seed=0)
+    full = ntl.fft(polys[0] + [0] * 4, omega, P, n)
+    check(full == ntl._fft_host(polys[0], omega, P, n), "ntl.fft")
+    check(ntl.partial_fft(polys[0], omega, P, n, 3) == full[:3],
+          "ntl.partial_fft")
+    check(ntl.fft_batch_evaluate(polys, omega, P, n, n) ==
+          [ntl._fft_host(q, omega, P, n) for q in polys],
+          "ntl.fft_batch_evaluate")
+    fz = [0, 2, 5, 7]
+    fys = [full[z] for z in fz]
+    check(ntl.fft_interpolate(fz, fys, omega, P, n)[:4] == polys[0],
+          "ntl.fft_interpolate")
+    check(ntl.fft_batch_interpolate(fz, [fys], omega, P, n)[0][:4] ==
+          polys[0], "ntl.fft_batch_interpolate")
+    gx = list(range(1, 10))
+    gy = [ntl.evaluate(polys[1][:3], x, P) for x in gx]
+    gy[1], gy[6] = (gy[1] + 17) % P, None
+    msg, errp = ntl.gao_interpolate(gx, gy, 3, P)
+    check(msg[:3] == polys[1][:3] and ntl.evaluate(errp, 2, P) == 0,
+          "ntl.gao_interpolate")
+    keep = [i for i, y in enumerate(gy) if y is not None]
+    check(ntl._gao_host([gx[i] for i in keep], [gy[i] for i in keep], 3,
+                        P)[0] == polys[1][:3], "ntl._gao_host")
+    sq = poly[0] * poly[0] % P
+    check(ntl.sqrt_mod(sq, P) ** 2 % P == sq, "ntl.sqrt_mod")
+    ntl.SetNumThreads(4)
+    ntl.SetNTLNumThreads(4)
+    check(ntl.AvailableNTLThreads() == ntl.GetMaxThreads() == 1,
+          "ntl thread controls")
+    try:
+        ntl.lagrange_interpolate([1, 1], [2, 3], P)
+        check(False, "ntl.InterpolationError not raised")
+    except ntl.InterpolationError:
+        pass
+    # row 14 through the entry point: 1024 polynomials, 512 coefficients,
+    # 4 points (fused2_fits fails, fused_fits holds)
+    big = [[rng.randrange(P) for _ in range(512)] for _ in range(1024)]
+    before = mxu.launches_fused
+    bx = [3, 5, 7, 11]
+    bev = ntl.vandermonde_batch_evaluate(bx, big, P)
+    check(mxu.launches_fused == before + 1,
+          "ntl.vandermonde_batch_evaluate(1024 x 512 at 4 points) did not "
+          "launch mxu_fused")
+    for r in (0, 511, 1023):
+        check(bev[r] == [ntl.evaluate(big[r], x, P) for x in bx],
+              "ntl.vandermonde_batch_evaluate (row 14) != Python ints")
+    cs = FpArray.from_ints(big, dev)
+    from honeybadgermpc_tpu_torch.ops.fpmatmul import \
+        vandermonde_batch_evaluate
+    rates["vandermonde_batch_evaluate_1024x512_at4"] = _rate(
+        lambda: vandermonde_batch_evaluate(bx, cs), "points_per_s", 4096)
+    launches = read_launches()
+    plain = read_plain()
+    check(not any(plain.values()), f"a plain version ran on the card: "
+          f"{plain}")
+    check(launches["mont_mul"] > 0 and launches["mxu_fused"] > 0 and
+          launches["mxu_redc"] > 0 and launches["fp_matmul_cios"] > 0,
+          f"the coding path missed a kernel: {launches}")
+    say("ntl", ok=True, launches={k: v for k, v in launches.items() if v},
+        plain_on_card=plain, seconds=round(time.perf_counter() - t0, 3))
+    return launches, rates
+
+
 def kernels_line(times, err, launches, launches_triples, launches_robust,
-                 launches_programs, int_mm_ms):
+                 launches_programs, launches_ntl, int_mm_ms):
     """The rows of the `kernels` JSON line, one per kernel: its source, the
     TPU kernel it replaces, launches on its path, times and bound."""
     meta = {
@@ -1617,6 +1943,10 @@ def kernels_line(times, err, launches, launches_triples, launches_robust,
             "honeybadgermpc_tpu_torch/csrc/mxu_fused2.cu",
             "honeybadgermpc_tpu/ops/mxu_matmul.py:453",
             f"B={N * C} k={K} n={N - K + 1}"),
+        "mxu_fused": (
+            "honeybadgermpc_tpu_torch/csrc/mxu_fused.cu",
+            "honeybadgermpc_tpu/ops/mxu_matmul.py:224",
+            f"B={CODING_B} k=512 n=4"),
         "mxu_redc": (
             "honeybadgermpc_tpu_torch/csrc/mxu_redc.cu",
             "honeybadgermpc_tpu/ops/mxu_matmul.py:547",
@@ -1645,6 +1975,8 @@ def kernels_line(times, err, launches, launches_triples, launches_robust,
     for s in (1, 2, 3):
         extra[f"open_fused_k{s}"] = (f"open_fused_k{s}_k{2 * T + 1}",
                                      f"k={2 * T + 1} C={C_2T}")
+    extra_streamed = {"mxu_fused2": ("mxu_fused2_streamed",
+                                     f"B={CODING_B} k=438 n=4 (k-streamed)")}
     robust_path = ("mont_mul", "fp_matmul_cios", "mxu_fused2", "mxu_redc")
     program_path = ("open_fused_k1", "open_fused_k2", "open_fused_k3",
                     "mul_add_packed")
@@ -1654,7 +1986,9 @@ def kernels_line(times, err, launches, launches_triples, launches_robust,
         # launches: from the run of the path the kernel belongs to (the
         # open path for the first three, the triple call for the next four,
         # the robust open for the last four); the open kernel serves all
-        if name in program_path:
+        if name == "mxu_fused":      # the NTL path (phase 17) reaches it
+            count = launches_ntl[name]
+        elif name in program_path:
             count = launches_programs[name]
         elif name in robust_path:
             count = launches_robust[name]
@@ -1675,6 +2009,14 @@ def kernels_line(times, err, launches, launches_triples, launches_robust,
             row["launches_robust_open"] = launches_robust[name]
         if name == "mxu_redc":      # its dot, outside the kernel
             row["dot_int_mm_ms"] = int_mm_ms
+        if name in robust_path:
+            row["launches_ntl"] = launches_ntl[name]
+        if name in extra_streamed:
+            key, shape3 = extra_streamed[name]
+            ms3, plain3, (bound3, by3) = times[key]
+            row["streamed_shape"] = {"ms": ms3, "plain_ms": plain3,
+                                     "bound_ms": bound3, "bound_by": by3,
+                                     "shape": shape3}
         if name in extra:
             key, shape2 = extra[name]
             ms2, plain2, (bound2, by2) = times[key]
@@ -1739,9 +2081,18 @@ def main():
     launches_programs, programs = phase_programs(dev, args.reps)
     say("program_timing", card=card, **programs)
     phase_program_fault(dev)
+    torch.cuda.empty_cache()
+
+    err5, times5 = phase_kernels_coding(dev)
+    err.update(err5)
+    times.update(times5)
+    torch.cuda.empty_cache()
+    launches_ntl, ntl_rates = phase_ntl(dev)
+    say("ntl_timing", card=card, **ntl_rates)
 
     kernels = kernels_line(times, err, launches, launches_triples,
-                           launches_robust, launches_programs, int_mm_ms)
+                           launches_robust, launches_programs, launches_ntl,
+                           int_mm_ms)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -27,11 +27,17 @@ and the detect-only single-kernel n-party open (deal -> pack -> open); the
 fused offline path, RanSha / RanDouSha with the aggregated check and the
 packed triple finish (runtime/offline.py: verified Beaver triples); the
 robust open with the Gao decoder (parallel/reconstruct.py, ops/gao.py);
-and every program of ``runtime/offline.py::sim_offline_jit`` — the eager
+every program of ``runtime/offline.py::sim_offline_jit`` — the eager
 per-column RanDouSha, triples and bits, with the faithful three-kernel
-open and its in-program robust fallback (ops/fused_open.py).
+open and its in-program robust fallback (ops/fused_open.py); and the
+NTL-compatible API (``ntl.py``) with the coding layer beneath it: the NTT
+(ops/ntt.py), the FNT decode (ops/rs.py), Welch-Berlekamp, the random
+refinement, every route of ``fp_matmul`` on the card, and the host math
+layer (``field.py``, ``polynomial.py``, ``elliptic_curve.py``).
 """
 
 __version__ = "0.1.0"
 
+from .elliptic_curve import Subgroup  # noqa: F401
+from .field import GF, GFElement  # noqa: F401
 from .ops.fparray import FpArray  # noqa: F401

@@ -111,8 +111,10 @@ def _declare(lib):
     lib.hb_mont_mul.argtypes = [vp, vp, vp, i64, vp]
     lib.hb_fp_matmul_cios.argtypes = [vp, vp, vp, i32, i32, i32, vp]
     lib.hb_mxu_fused2.argtypes = [vp, vp, vp, i64, i32, i32, i32, i32, i32,
-                                  vp]
-    lib.hb_mxu_redc.argtypes = [vp, vp, i64, vp]
+                                  i32, i32, vp]
+    lib.hb_mxu_fused.argtypes = [vp, vp, vp, i64, i32, i32, i32, i32, i32,
+                                 i32, vp]
+    lib.hb_mxu_redc.argtypes = [vp, vp, i64, i32, vp]
     lib.hb_mul_add_packed.argtypes = [vp, vp, vp, vp, i64, vp]
     fused = (lib.hb_open_fused_k1, lib.hb_open_fused_k2,
              lib.hb_open_fused_k3)
@@ -123,7 +125,8 @@ def _declare(lib):
                lib.hb_randousha_deal, lib.hb_randousha_extract,
                lib.hb_mul_add_packed4, lib.hb_sub_bcast_packed4,
                lib.hb_mont_mul, lib.hb_fp_matmul_cios, lib.hb_mxu_fused2,
-               lib.hb_mxu_redc, lib.hb_mul_add_packed) + fused:
+               lib.hb_mxu_fused, lib.hb_mxu_redc,
+               lib.hb_mul_add_packed) + fused:
         fn.restype = ctypes.c_int
 
 

@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from . import montgomery as mont
-from .limbs import L, P, ints_to_limbs, limbs_to_ints
+from .limbs import L, P, int_to_limbs, ints_to_limbs, limbs_to_ints
 
 _CUDA = torch.device("cuda")
 
@@ -65,10 +65,12 @@ class FpArray:
 
     @classmethod
     def from_int(cls, x: int, shape=(), device=_CUDA):
-        v = pow(2, 256, P) * x % P  # Montgomery form computed on host
-        host = ints_to_limbs(np.full(shape, v, dtype=object)) if shape \
-            else ints_to_limbs(np.array(v, dtype=object))
-        return cls(_to_tensor(host, device))
+        """x at every element of `shape`: one limb vector (Montgomery form
+        computed on the host) broadcast on the device."""
+        shape = tuple(shape)
+        one = _to_tensor(int_to_limbs(pow(2, 256, P) * x % P), device)
+        return cls(one.reshape((L,) + (1,) * len(shape)).expand(
+            (L,) + shape).contiguous())
 
     @classmethod
     def zeros(cls, shape=(), device=_CUDA):

@@ -8,7 +8,9 @@ the host with exact Python ints and kept on the device per (x-set, device)
 ``fp_matmul`` routes a shape to a kernel exactly as the reference routes it
 on the TPU (``_route``): batches of 1024 or more with a contraction inside
 the int8 headroom go to the MXU matmuls (the folded-constant kernel where
-``fused2_fits``, else the unfused one), everything else to the CIOS matmul
+``fused2_fits``, else the fused 73-diagonal kernel where ``fused_fits``,
+else the library dot and the REDC epilogue), everything else to the CIOS
+matmul
 ``field_kernels.fp_matmul_pallas`` — where the reference's CPU and tiny-shape
 branch ran its jnp scan, the port runs that kernel. Each route takes its
 kernel on a CUDA tensor and its plain version on a CPU tensor.
@@ -59,8 +61,8 @@ def _matmul_kernel(a_limbs, m_limbs, mul=mont.mont_mul):
 
 def _route(numel: int, k: int, n: int) -> str:
     """The kernel a shape reaches: "mxu2" (folded-constant MXU matmul),
-    "mxu" (unfused MXU matmul), "mxu_fused" (the reference's fused v1
-    kernel, not ported) or "cios" (the CIOS matmul). The reference's
+    "mxu_fused" (the fused 73-diagonal MXU matmul), "mxu" (library dot and
+    the REDC epilogue) or "cios" (the CIOS matmul). The reference's
     predicates (fpmatmul.py fp_matmul, mxu_matmul.py fp_matmul_mxu on the
     TPU), with its jnp branch for shapes under 1024 outputs taken by the
     CIOS kernel."""
@@ -77,7 +79,8 @@ def _route(numel: int, k: int, n: int) -> str:
 def fp_matmul(a: FpArray, m: FpArray) -> FpArray:
     """a[..., k] @ m[k, n] -> [..., n] over GF(p) (see ``_route``)."""
     from .field_kernels import fp_matmul_pallas
-    from .mxu_matmul import fp_matmul_mxu, fp_matmul_mxu2
+    from .mxu_matmul import (fp_matmul_mxu, fp_matmul_mxu2,
+                             fp_matmul_mxu_fused)
     if m.ndim != 2 or a.shape[-1] != m.shape[0]:
         raise ValueError(f"cannot multiply {a.shape} by {m.shape}")
     batch_shape = a.shape[:-1]
@@ -87,9 +90,11 @@ def fp_matmul(a: FpArray, m: FpArray) -> FpArray:
     route = _route(numel, k, n)
     if route == "mxu2":
         out = fp_matmul_mxu2(flat, m.limbs)
+    elif route == "mxu_fused":
+        out = fp_matmul_mxu_fused(flat, m.limbs)
     elif route == "cios":
         out = fp_matmul_pallas(flat, m.limbs)
-    else:                  # "mxu", or "mxu_fused", which raises on the card
+    else:
         out = fp_matmul_mxu(flat, m.limbs)
     return FpArray(out.reshape((L,) + tuple(batch_shape) + (n,)))
 

@@ -187,8 +187,9 @@ def redc384(t_limbs):
     return _redc384_rows([t64[j] for j in range(RAND_LIMBS)]).to(torch.int32)
 
 
-def const_stack(limbs_np, shape=(), device="cpu"):
-    """uint32[L] numpy limbs -> broadcast int32[L, *shape] tensor."""
+def const_stack(limbs_np, shape, device):
+    """uint32[L] numpy limbs -> broadcast int32[L, *shape] tensor on
+    `device` (no default: a constant is built where its user lives)."""
     t = torch.from_numpy(np.asarray(limbs_np, np.int64).astype(np.int32))
     return t.to(device).reshape((L,) + (1,) * len(shape)).expand(
         (L,) + tuple(shape))
@@ -204,7 +205,7 @@ def from_mont(a):
     return mont_mul(a, const_stack(int_to_limbs(1), _bshape(a), a.device))
 
 
-def one_mont(shape=(), device="cpu"):
+def one_mont(shape, device):
     return const_stack(R_MOD_P_LIMBS, shape, device)
 
 

@@ -2,8 +2,8 @@
 
 Counterpart of ``honeybadgermpc_tpu/ops/mxu_matmul.py``. A Montgomery
 product sum_k a*v over GF(p) becomes an integer convolution of base-2^7
-digits (0..127, exact in int8), one int8 matmul, and a short modular
-epilogue. Two routes, chosen by shape exactly as the reference chooses
+digits (0..127, exact in int8), one int8 matmul, and a modular epilogue.
+Three routes, chosen by shape exactly as the reference chooses
 (``fused2_fits``, ``fused_fits``, called from ops/fpmatmul.py):
 
 * ``fp_matmul_mxu2`` — the folded-constant scheme: the band operand
@@ -11,20 +11,30 @@ epilogue. Two routes, chosen by shape exactly as the reference chooses
   v (``_folded_band_digits``: a mont_mul and ``_planes7``), so 37 output
   diagonals carry the already-reduced value and the epilogue is a 37-term
   fold, 1-2 REDC rounds and two conditional subtracts (``_fold_reduce``).
-  On a CUDA tensor the dot and the epilogue are the hand-written kernel
-  ``csrc/mxu_fused2.cu`` (planes, ``mma.sync`` and fold in one launch);
-  ``_fused2_plain`` is its plain version.
-* ``fp_matmul_mxu`` — the full product convolution: a's planes against a
-  band of v's planes (pre-scaled by 2^16 R, ``_scaled_planes``) give 73
-  diagonals, which a 17-round REDC epilogue reduces
-  (``_redc_diagonals``). The dot is the library's int8 matmul
-  (``torch._int_mm`` on the card), as the reference left it to XLA; the
-  epilogue is the hand-written kernel ``csrc/mxu_redc.cu`` on a CUDA
-  tensor. The reference's fused v1 kernel (``_fused_kernel``) is not
-  ported: shapes where ``fused_fits`` holds raise on the card.
+  On a CUDA tensor: the kernel ``csrc/mxu_fused2.cu``; ``_fused2_plain``
+  is its plain version.
+* ``fp_matmul_mxu_fused`` — the full product convolution in one kernel:
+  a's planes against the band of v's planes (pre-scaled by 2^16 R,
+  ``_scaled_planes``) give 73 diagonals, which the 17-round REDC epilogue
+  reduces (``_redc_diagonals``) without leaving the chip. On a CUDA tensor:
+  ``csrc/mxu_fused.cu``; ``_fused_plain`` is its plain version.
+* ``fp_matmul_mxu`` — the same convolution with the dot outside the
+  kernel: the library's int8 matmul (``torch._int_mm`` on the card), as
+  the reference left it to XLA, then the epilogue kernel
+  ``csrc/mxu_redc.cu`` on a CUDA tensor. Where ``fused_fits`` holds it
+  takes the fused kernel on the card, as the reference does on the TPU.
 
-All integer work mirrors the reference's uint32 arithmetic (int64 tensors
-masked to 32 bits where a uint32 would wrap), so the words are equal.
+Both fused kernels are csrc/mxu_core.cuh's k-streamed kernel: digit planes
+pass through shared memory in chunks of 32 operands, so every k that the
+reference's predicates route to them runs.
+
+The plain versions mirror the reference's integer work in int64, with one
+deliberate difference: the reference folds adjacent diagonals in pairs,
+d_2i + (d_2i+1 << 7), in uint32, which wraps once a diagonal reaches 2^25
+(uniform inputs do from about k = 230), and then returns wrong words. The
+port keeps that sum exact (``_pairs``; the kernels pair only where it
+cannot wrap, k <= 55), so every route gives the true product; at the
+shapes where the reference does not wrap the words are equal.
 """
 
 from __future__ import annotations
@@ -40,7 +50,6 @@ NPLANES = 37                  # ceil(259 / 7) covers 256-bit values
 NOUT = 2 * NPLANES - 1        # 73 product diagonals
 REDC_ROUNDS = 17              # divide by 2^272
 _P = [int(x) for x in P_LIMBS]
-_M32 = 0xFFFFFFFF
 
 # 2^(16*17-256) * R mod p: mont_mul(x, this) = x * 2^16, which cancels the
 # 2^-16 surplus of the 17-round REDC
@@ -50,6 +59,7 @@ K_ROUNDS1 = (1 << 17) // (NPLANES * 127)      # = 27
 
 # times each CUDA kernel was launched (counted there and nowhere else)
 launches_fused2 = 0
+launches_fused = 0
 launches_redc = 0
 # times a plain version ran on CUDA tensors (only comparisons may do that)
 plain_calls_on_cuda = 0
@@ -115,23 +125,22 @@ def _dot_s8(x, y):
 
 
 def _add_at_bit(t, e, bit):
-    """t (carry-save 16-bit limbs) += e * 2^bit, e < 2^32, as three
-    16-bit chunks at limbs j, j+1, j+2."""
+    """t (carry-save 16-bit limbs) += e * 2^bit as 16-bit chunks at limbs
+    j, j+1, j+2 (the last one holds all of e's bits above 32 - r)."""
     j, r = divmod(bit, W)
     elo, ehi = e & MASK, e >> W
     t[j] = t[j] + ((elo << r) & MASK)
     if j + 1 < len(t):
-        c1 = ((elo >> (W - r)) if r else 0) | ((ehi << r) & MASK)
-        t[j + 1] = t[j + 1] + (c1 & MASK)
-    if j + 2 < len(t) and r:
+        t[j + 1] = t[j + 1] + ((elo >> (W - r)) | ((ehi << r) & MASK))
+    if j + 2 < len(t):
         t[j + 2] = t[j + 2] + (ehi >> (W - r))
 
 
 def _pairs(d, count):
-    """Diagonals (int64, values < 2^32) -> (bit, e) terms: adjacent pairs
-    e = d_2i + (d_2i+1 << 7) mod 2^32 (the reference's uint32), the odd
-    last one alone."""
-    out = [(PLANE_BITS * i, (d[i] + (d[i + 1] << PLANE_BITS)) & _M32)
+    """Diagonals (int64, values < 2^31) -> (bit, e) terms: adjacent pairs
+    e = d_2i + (d_2i+1 << 7), the odd last one alone. Exact in int64 (the
+    reference's uint32 wraps here at large k; see the module docstring)."""
+    out = [(PLANE_BITS * i, d[i] + (d[i + 1] << PLANE_BITS))
            for i in range(0, count - 1, 2)]
     if count % 2:
         out.append((PLANE_BITS * (count - 1), d[count - 1]))
@@ -173,7 +182,7 @@ def _redc_diagonals(ds):
     Montgomery limbs. 36 carry-save limbs, 17 REDC rounds, one
     conditional subtract."""
     _count_plain(ds)
-    d = ds.to(torch.int64) & _M32
+    d = ds.to(torch.int64)
     t = [torch.zeros_like(d[0]) for _ in range(36)]
     for bit, e in _pairs(d, NOUT):
         _add_at_bit(t, e, bit)
@@ -192,7 +201,7 @@ def _fold_reduce(ds, rounds: int):
     """Plain version of the row-13 kernel's epilogue: int32 [NPLANES, ...]
     diagonals (7-bit spacing, total value V < 3p * 2^(16 rounds)) -> int32
     [L, ...] canonical limbs of V / 2^(16 rounds) mod p."""
-    d = ds.to(torch.int64) & _M32
+    d = ds.to(torch.int64)
     t = [torch.zeros_like(d[0]) for _ in range(19)]
     for bit, e in _pairs(d, NPLANES):
         _add_at_bit(t, e, bit)
@@ -241,41 +250,92 @@ def fused2_fits(k: int, n: int) -> bool:
     return band + d32 + ablk < 6 * 2 ** 20
 
 
-# -- row 13: the folded-constant kernel --------------------------------------
+# -- the k-streamed kernels (rows 13 and 14, csrc/mxu_core.cuh) --------------
 
-_FUSED2_THREADS = 512
-_FUSED2_STAGE = (_FUSED2_THREADS // 32) * NPLANES * 40 * 4   # transpose areas
+_KC = 32                          # operands per streamed chunk
+_SMEM_MAX = 227 * 1024            # shared memory a Hopper block may use
+_D_STRIDE = 40                    # staging row stride (ints) per warp
+# m-tiles of 16 diagonals -> (threads per block, diagonals of the epilogue)
+_STREAM = {3: (512, NPLANES), 5: (256, NOUT)}
 
 
-def _fused2_plan(k: int) -> int:
-    """Lanes per 512-thread block of csrc/mxu_fused2.cu: its digit planes
-    (k*37 rows padded to 32, row stride tl+8 bytes x 4) and 16 transpose
-    areas must fit the 227 KB of shared memory a Hopper block may use."""
-    kcols = -(-(k * NPLANES) // 32) * 32
-    for tl in (64, 32):
-        if kcols * (tl + 8) + _FUSED2_STAGE <= 226 * 1024:
-            return tl
-    raise NotImplementedError(
-        f"k={k}: the fused MXU kernel keeps k*37 digit rows per lane in "
-        "shared memory, which holds k <= 91")
+def _kcols(k: int) -> int:
+    """Digit rows k*37, padded to the 32 of an mma k-step. Chunks of 32
+    operands are 1184 = 37 x 32 rows, so chunking adds no padding."""
+    return -(-(k * NPLANES) // 32) * 32
+
+
+def _pair_safe(k: int) -> bool:
+    """d_2i + (d_2i+1 << 7) stays below 2^32 for diagonals < 37 k 127^2."""
+    return 129 * NPLANES * k * 127 * 127 < 2 ** 32
+
+
+def _stream_plan(k: int, mt: int):
+    """(threads, lanes per block, dynamic shared bytes) of the k-streamed
+    kernel with `mt` m-tiles at contraction k: the digit planes of one
+    chunk (at most 1184 rows of tl + 8 bytes) and a staging area of
+    diagonals x 40 ints per warp. It fits at every k."""
+    threads, ndiag = _STREAM[mt]
+    tl = 64
+    smem = (min(_kcols(k), _KC * NPLANES) * (tl + 8)
+            + threads // 32 * ndiag * _D_STRIDE * 4)
+    if smem > _SMEM_MAX:
+        raise ValueError(f"k={k}: {smem} bytes of shared memory")
+    return threads, tl, smem
+
+
+def _band_fragments(m, mt: int):
+    """Band digits int8 [n, 16 mt, kcols] (rows = output diagonals, zero
+    past the real ones; columns = digit rows q = kk*37 + d, zero past
+    k*37) -> the kernels' band int32 [n, ksteps, mt, 32, 4]: for column col,
+    k-step ks, m-tile mt and thread l (g = l >> 2, tg = l & 3), register j
+    holds the four int8 digits (lowest byte first) of row 16mt + g + 8(j &
+    1), columns 32ks + 16(j >> 1) + 4tg + 0..3 — the PTX fragment layout of
+    a row-major 16x32 int8 A tile."""
+    n, _, kcols = m.shape
+    m = m.reshape(n, mt, 2, 8, kcols // 32, 2, 4, 4)   # mt h g ks half tg e
+    m = m.permute(0, 4, 1, 3, 6, 5, 2, 7).contiguous()
+    return m.view(torch.int32).reshape(n, kcols // 32, mt, 32, 4)
 
 
 def _fused2_band(wd):
-    """Digits wd int8 [k, n, d, s] -> the kernel's band: int32
-    [n, ksteps, 3, 32, 4], for column col, k-step ks (digit rows q = kk*37
-    + d, 32 per step), m-tile mt (diagonals s = 16mt..16mt+15, zero above
-    36) and thread l (g = l >> 2, tg = l & 3), register j holds the four
-    int8 digits (lowest byte first) of row 16mt + g + 8(j & 1), columns
-    32ks + 16(j >> 1) + 4tg + 0..3 — the PTX fragment layout of a row-major
-    16x32 int8 A tile."""
+    """Folded digits wd int8 [k, n, d, s] -> row 13's band (3 m-tiles:
+    diagonals s = 0..36, zero to 47)."""
     k, n = wd.shape[0], wd.shape[1]
     kq = k * NPLANES
-    kcols = -(-kq // 32) * 32
     m = wd.permute(1, 3, 0, 2).reshape(n, NPLANES, kq)          # [n, s, q]
-    m = torch.nn.functional.pad(m, (0, kcols - kq, 0, 48 - NPLANES))
-    m = m.reshape(n, 3, 2, 8, kcols // 32, 2, 4, 4)   # mt h g ks half tg e
-    m = m.permute(0, 4, 1, 3, 6, 5, 2, 7).contiguous()
-    return m.view(torch.int32).reshape(n, kcols // 32, 3, 32, 4)
+    m = torch.nn.functional.pad(m, (0, _kcols(k) - kq, 0, 48 - NPLANES))
+    return _band_fragments(m, 3)
+
+
+def _fused_band(v8):
+    """Scaled planes v8 int8 [k, n, 37] -> row 14's band (5 m-tiles):
+    diagonal l at digit row kk*37 + d holds digit l - d of v[kk] (0
+    outside 0..36), diagonals 73..79 zero."""
+    k, n = v8.shape[0], v8.shape[1]
+    band = torch.zeros((n, 80, k, NPLANES), dtype=torch.int8,
+                       device=v8.device)
+    vt = v8.permute(1, 2, 0)                                     # [n, s, k]
+    for d in range(NPLANES):
+        band[:, d:d + NPLANES, :, d] = vt
+    band = band.reshape(n, 80, k * NPLANES)
+    band = torch.nn.functional.pad(band, (0, _kcols(k) - k * NPLANES))
+    return _band_fragments(band, 5)
+
+
+def _run_streamed(entry, a, band, n, *args):
+    """Launch a k-streamed kernel: a int32 [L, B, k] (contiguous), band
+    from _band_fragments -> int32 [L, B, n]."""
+    _, B, k = a.shape
+    mt = band.shape[2]
+    _, tl, smem = _stream_plan(k, mt)
+    out = torch.empty((L, B, n), dtype=torch.int32, device=a.device)
+    rc = entry(a.data_ptr(), band.data_ptr(), out.data_ptr(), B, k, n,
+               *args, tl, band.shape[1], smem, int(_pair_safe(k)),
+               _launch_stream(a))
+    if rc != 0:
+        raise RuntimeError(f"MXU kernel launch failed: CUDA error {rc}")
+    return out
 
 
 def _fused2_cuda(a, wd, rounds: int):
@@ -283,17 +343,9 @@ def _fused2_cuda(a, wd, rounds: int):
     band digits [k, n, 37, 37] -> int32 [L, B, n]."""
     global launches_fused2
     from .._build import lib
-    _, B, k = a.shape
-    n = wd.shape[1]
-    tl = _fused2_plan(k)
-    band = _fused2_band(wd)
-    out = torch.empty((L, B, n), dtype=torch.int32, device=a.device)
-    kcols = -(-(k * NPLANES) // 32) * 32
-    rc = lib().hb_mxu_fused2(a.data_ptr(), band.data_ptr(), out.data_ptr(),
-                             B, k, n, rounds, tl, kcols, _launch_stream(a))
+    out = _run_streamed(lib().hb_mxu_fused2, a, _fused2_band(wd),
+                         wd.shape[1], rounds)
     launches_fused2 += 1
-    if rc != 0:
-        raise RuntimeError(f"mxu_fused2 kernel launch failed: CUDA error {rc}")
     return out
 
 
@@ -322,17 +374,48 @@ def fp_matmul_mxu2(a_limbs, v_limbs):
     return _fused2_plain(a, wd, rounds)
 
 
+# -- row 14: the unfolded product convolution in one kernel ------------------
+
+def _fused_cuda(a, v_limbs):
+    """Launch csrc/mxu_fused.cu: a int32 [L, B, k] (contiguous), v [L, k,
+    n] Montgomery limbs -> int32 [L, B, n]."""
+    global launches_fused
+    from .._build import lib
+    out = _run_streamed(lib().hb_mxu_fused, a,
+                        _fused_band(_scaled_planes(v_limbs)), v_limbs.shape[2])
+    launches_fused += 1
+    return out
+
+
+def _fused_plain(a, v_limbs):
+    """Plain PyTorch version of the row-14 kernel: the same 73 diagonals
+    from an exact integer dot, the same REDC epilogue -> int32 [L, B, n]."""
+    _, B, _ = a.shape
+    return _redc_diagonals(_mxu_diagonals(a, v_limbs)).reshape(
+        L, B, v_limbs.shape[2])
+
+
+def fp_matmul_mxu_fused(a_limbs, v_limbs):
+    """a[L, B, k] @ v[L, k, n] (both Montgomery) -> [L, B, n] through the
+    73-diagonal product convolution and the 17-round REDC: the kernel on a
+    CUDA tensor, its plain version on a CPU tensor."""
+    a = a_limbs.contiguous()
+    if a.is_cuda:
+        return _fused_cuda(a, v_limbs)
+    return _fused_plain(a, v_limbs)
+
+
 # -- row 15: library dot + the REDC epilogue kernel --------------------------
 
-def _redc_cuda(diag):
-    """Launch csrc/mxu_redc.cu: int32 [NOUT, M] (contiguous) -> int32
-    [L, M]."""
+def _redc_cuda(diag, k: int):
+    """Launch csrc/mxu_redc.cu: int32 [NOUT, M] (contiguous) diagonals of a
+    contraction over k -> int32 [L, M]."""
     global launches_redc
     from .._build import lib
     M = diag.shape[1]
     out = torch.empty((L, M), dtype=torch.int32, device=diag.device)
     rc = lib().hb_mxu_redc(diag.data_ptr(), out.data_ptr(), M,
-                           _launch_stream(diag))
+                           int(_pair_safe(k)), _launch_stream(diag))
     launches_redc += 1
     if rc != 0:
         raise RuntimeError(f"mxu_redc kernel launch failed: CUDA error {rc}")
@@ -353,16 +436,15 @@ def fp_matmul_mxu(a_limbs, v_limbs):
     """a[L, B, k] @ v[L, k, n] (both Montgomery) -> [L, B, n] Montgomery:
     an int8 dot of a's planes against v's scaled band, then the REDC
     epilogue (the kernel on a CUDA tensor, its plain version on a CPU
-    tensor)."""
+    tensor). On the card a shape where ``fused_fits`` holds takes the fused
+    kernel instead, as the reference does on the TPU."""
     _, B, k = a_limbs.shape
     n = v_limbs.shape[2]
     if a_limbs.is_cuda and fused_fits(k, n):
-        raise NotImplementedError(
-            f"k={k}, n={n} takes the reference's fused v1 MXU kernel "
-            "(mxu_matmul.py _fused_kernel), which is not ported yet")
+        return fp_matmul_mxu_fused(a_limbs, v_limbs)
     diag = _mxu_diagonals(a_limbs, v_limbs)
     if diag.is_cuda:
-        out = _redc_cuda(diag)
+        out = _redc_cuda(diag, k)
     else:
         out = _redc_diagonals(diag)
     return out.reshape(L, B, n)

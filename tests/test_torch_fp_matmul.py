@@ -1,5 +1,5 @@
-"""Port parity: the three routes of the GF(p) matmul (rows 12, 13 and 15 of
-PERF.md's kernel table) and fp_matmul's routing, against the JAX reference
+"""Port parity: the four routes of the GF(p) matmul (rows 12-15 of PERF.md's
+kernel table) and fp_matmul's routing, against the JAX reference
 on the CPU (its Pallas kernels in interpret mode; the jnp scan) and a
 Python-int oracle. On the CPU every route takes its plain version; the
 kernels are held against those on the card (chip_smoke.py). Inputs come
@@ -119,6 +119,14 @@ def _reference_route(numel, k, n):
     (2048, 22, 1),       # lagrange_evaluate_at
     (21, 3, 7),          # the n=7 tests' shapes
     (256, 9, 12), (1030, 3, 2), (1024, 9, 12), (4096, 200, 4), (5000, 600, 4),
+    # the edges of the row-13 and row-14 windows at a batch of 1024
+    (1024, 91, 4), (1024, 92, 4), (1024, 438, 4), (1024, 439, 4),
+    (1024, 858, 4), (1024, 859, 4), (1024, 312, 8), (1024, 313, 8),
+    (1024, 422, 8), (1024, 423, 8), (1024, 195, 16), (1024, 196, 16),
+    (1024, 204, 16), (1024, 205, 16), (1024, 151, 22), (1024, 152, 22),
+    (1024, 108, 32), (1024, 109, 32), (1024, 80, 43), (1024, 81, 43),
+    (1024, 52, 64), (1024, 53, 64), (1024, 3598, 4), (1024, 3599, 4),
+    (1023, 439, 4), (1031, 204, 16),
 ])
 def test_routing_matches_the_reference(numel, k, n):
     assert _route(numel, k, n) == _reference_route(numel, k, n)
@@ -143,11 +151,66 @@ def test_fp_matmul_takes_the_routes_on_arrays():
     assert _route(15, 4, 6) == "cios"
 
 
-def test_fused_kernel_plan_holds_the_slice_and_refuses_long_contractions():
-    """The folded MXU kernel keeps k*37 digit rows per lane in shared
-    memory: 64 lanes per block at the open's k=22, 32 at Gao's k=64, and
-    no k above 91 (those raise rather than fall back)."""
-    assert mxu._fused2_plan(22) == 64 and mxu._fused2_plan(64) == 32
-    assert mxu._fused2_plan(91) == 32
-    with pytest.raises(NotImplementedError):
-        mxu._fused2_plan(92)
+def test_streamed_kernels_have_a_plan_for_every_routed_contraction():
+    """Rows 13 and 14 stream k through shared memory in chunks of 32
+    operands: every k that the reference's predicates send to them (all k
+    with fused2_fits, and the fused_fits windows beyond it) has a launch
+    plan inside a Hopper block's 227 KB."""
+    for n in (4, 8, 16, 22, 32, 43, 64):
+        ks2 = [k for k in range(1, 3600) if mxu.fused2_fits(k, n)]
+        ks1 = [k for k in range(1, 3600)
+               if mxu.fused_fits(k, n) and not mxu.fused2_fits(k, n)]
+        assert ks2 == list(range(1, max(ks2) + 1))
+        assert max(ks2) == {4: 438, 8: 312, 16: 195, 22: 151, 32: 108,
+                            43: 80, 64: 52}[n]
+        for k in ks2:
+            threads, tl, smem = mxu._stream_plan(k, 3)
+            assert (threads, tl) == (512, 64) and smem <= mxu._SMEM_MAX
+        for k in ks1:
+            assert mxu._stream_plan(k, 5)[2] <= mxu._SMEM_MAX
+        assert (min(ks1, default=None), max(ks1, default=None)) == {
+            4: (439, 858), 8: (313, 422), 16: (196, 204)}.get(n, (None, None))
+
+
+def test_fused_route_plain_vs_reference_and_ints():
+    """Row 14's plain version (the 73 diagonals and the 17-round REDC) at
+    the reference's fast-tier shape against its fp_matmul_mxu (interpret
+    mode), and at a routed shape (B=1024, k=439, n=4) through fp_matmul
+    against Python ints on sampled rows."""
+    B, k, n = 256, 9, 12
+    a, v = _mat(7, B, k), _mat(8, k, n)
+    got = _port(mxu.fp_matmul_mxu_fused, a, v)
+    want = np.asarray(ref_mxu.fp_matmul_mxu(jnp.asarray(a), jnp.asarray(v)))
+    assert np.array_equal(got, want)
+    B, k, n = 1024, 439, 4
+    assert _route(B, k, n) == "mxu_fused"
+    a, v = _mat(9, B, k), _mat(10, k, n)
+    out = fp_matmul(FpArray(from_reference_limbs(a, "cpu")),
+                    FpArray(from_reference_limbs(v, "cpu")))
+    got = to_reference_limbs(out.limbs)
+    rows = [0, 511, B - 1]
+    assert limbs_to_ints(got[:, rows]).tolist() == _oracle_rows(a, v, rows)
+
+
+def test_epilogues_stay_exact_where_the_reference_wraps():
+    """The reference folds diagonal pairs d_2i + (d_2i+1 << 7) in uint32,
+    which wraps once a diagonal reaches 2^25 (here at k=256): its
+    _redc_diagonals and _fold_reduce then return wrong words. The port
+    keeps the sum exact, so rows 13 and 15 (and row 14, which shares the
+    epilogue) give Python ints; at k=55 and below the reference does not
+    wrap and the words are equal (ROADMAP Queue C)."""
+    B, n = 2, 4
+    for k, wraps in ((55, False), (256, True)):
+        a, v = _mat(11 + k, B, k), _mat(12 + k, k, n)
+        want = _oracle_rows(a, v, range(B))
+        ta, tv = from_reference_limbs(a, "cpu"), from_reference_limbs(v, "cpu")
+        for fn in (mxu.fp_matmul_mxu, mxu.fp_matmul_mxu2):
+            got = to_reference_limbs(fn(ta, tv))
+            assert limbs_to_ints(got).tolist() == want
+        d = mxu._mxu_diagonals(ta, tv).numpy()
+        ref = ref_mxu._redc_diagonals([jnp.asarray(d[i]) for i in range(73)],
+                                      (d.shape[1],))
+        ref = np.stack([np.asarray(x) for x in ref]).reshape(16, B, n)
+        assert (limbs_to_ints(ref).tolist() != want) == wraps
+        assert (int(d.max()) >= 2 ** 25) == wraps
+        assert mxu._pair_safe(k) == (k <= 55)

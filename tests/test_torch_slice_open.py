@@ -152,26 +152,30 @@ def test_port_state_survives_save_and_load(tmp_path):
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    code = ("import sys\n"
+    """Every module of the port, found by walking the package, imports in a
+    fresh interpreter without jax, jaxlib or honeybadgermpc_tpu."""
+    code = ("import sys, pkgutil, importlib\n"
             "before = set(sys.modules)\n"
-            "import honeybadgermpc_tpu_torch\n"
-            "import honeybadgermpc_tpu_torch.interop\n"
-            "import honeybadgermpc_tpu_torch._build\n"
-            "import honeybadgermpc_tpu_torch.ops.band_matmul\n"
-            "import honeybadgermpc_tpu_torch.ops.field_kernels\n"
-            "import honeybadgermpc_tpu_torch.ops.fused_randousha\n"
-            "import honeybadgermpc_tpu_torch.parallel.mesh\n"
-            "import honeybadgermpc_tpu_torch.parallel.reconstruct\n"
-            "import honeybadgermpc_tpu_torch.runtime.offline\n"
-            "import honeybadgermpc_tpu_torch.runtime.preprocessing\n"
+            "import honeybadgermpc_tpu_torch as pkg\n"
+            "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+            "pkg.__name__ + '.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            "want = {'ntl', 'ops.ntt', 'field', 'polynomial', "
+            "'elliptic_curve', 'ops.welch_berlekamp', 'runtime.refinement',"
+            " 'ops.mxu_matmul', 'parallel.reconstruct', 'runtime.offline'}\n"
+            "missing = {pkg.__name__ + '.' + w for w in want} - set(names)\n"
+            "assert not missing, missing\n"
             "bad = [m for m in set(sys.modules) - before if m == 'jax' or "
             "m.startswith('jax.') or m == 'jaxlib' or "
             "m.split('.')[0] == 'honeybadgermpc_tpu']\n"
             "assert not bad, bad\n"
-            "assert 'torch' in sys.modules\n")
+            "assert 'torch' in sys.modules\n"
+            "print(len(names))\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) >= 25
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
