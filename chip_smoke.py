@@ -22,6 +22,10 @@ n=64, t=21:
     in both modes (90,112 double sharings, triples or bits per call): the
     fused pipelines, the eager per-column programs with detect-only opens,
     and with the faithful three-kernel open and its in-program fallback;
+  * the per-column check of the fused RanDouSha pipeline —
+    ``_randousha_calls(64, 21, 4096, aggregate=False)`` in double and single
+    mode (90,112 double sharings per call), every discarded column opened at
+    both degrees, with a flipped word and the known-rho bypass caught;
   * the coding layer and the NTL-compatible API — the reference bench's
     grids of Vandermonde interpolation, NTT interpolation and evaluation
     and random refinement, the omega-domain encode and FNT decode of
@@ -32,9 +36,10 @@ n=64, t=21:
 The first run builds the kernels from ``honeybadgermpc_tpu_torch/csrc``
 into ``honeybadgermpc_tpu_torch/build``.
 
-Phases, each printing one JSON line; any failure exits non-zero:
+Phases, each printing one JSON line; any failure exits non-zero (18 and
+19 run right after 10):
   1 device    a CUDA card must be present; prints its name and power limit
-  2 build     compile and load the sixteen kernels
+  2 build     compile and load the nineteen kernels
   3 kernels   each kernel against its plain PyTorch version on the card,
               bit for bit, at small, unaligned and main-path shapes, with
               times and the computed bound
@@ -86,6 +91,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
               43 parties, every ntl function once (row 14 through
               vandermonde_batch_evaluate), each against Python ints on a
               sample; rates in the bench's units beside device-busy ms
+ 18 per-column kernels  rows 5b, 6 and 11 (randousha_extract_pc,
+              randousha_check, sub_bcast_packed) against their plain
+              versions on the card, bit for bit: the extraction and check at
+              n=8, t=2, sp=128 and n=64, t=21, sp=4096, both degrees, the
+              check also on a flipped word (1 at that lane only); the flat
+              subtract at [8,3,77] and at the flat finish's [8,90112] -
+              [8,64,90112], also against montgomery.sub_mod; times, bounds
+ 19 per-column path  _randousha_calls(64, 21, 4096, aggregate=False), double
+              and single, launch counts set to 0 just before each call:
+              nerr == 0, no plain version on the card, keep rows [:22] equal
+              to the aggregated run's, equal opened check values at both
+              degrees and Python ints on a sample; a flipped receive word at
+              party 30 gives errs 1 in every real check column of its slot;
+              the known-rho bypass passes the aggregated check and not the
+              per-column one; ms per call, device-busy ms
 
 The last line of the output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -108,7 +128,8 @@ matmul (on 8 words of 32 bits) and the MXU epilogues (on the reference's
 the scheme runs it (37 x 37 digit products per operand and output). The
 three-kernel open's dots are counted like the direct open's (32 diagonals
 x 32k digits per lane and column), K3 decoding once; the flat finish like
-the 4D one.
+the 4D one. The per-column extraction counts its dot at all n columns, the
+check K2's per lane of the check tensor.
 """
 
 import argparse
@@ -171,6 +192,7 @@ RAND_OPS_PER_ELEMENT = 6 * (20 * 3 + 2 + 10) + 5 * (1 + 8 * 2 + 2) + 8 \
 KT = 4096                         # slots of one triple call
 N_OUT = N - 2 * T                 # 22 extracted sharings per slot
 N_OUTP = -(-N_OUT // 8) * 8       # 24 rows of the padded keep tensor
+NCHECKP = -(-2 * T // 8) * 8      # 48 columns of the padded check tensor
 # Least 32-bit integer instructions per element of the packed finish
 # functions, same counting: the operands arrive as 8 words of 32 bits, so
 # nothing is unpacked. mul_add: a 256-bit Montgomery product is 8 x 8 x
@@ -201,6 +223,9 @@ KERNEL_COUNTERS = {
     "open_fused_k2": (fo, "launches_k2"),
     "open_fused_k3": (fo, "launches_k3"),
     "mul_add_packed": (fk, "launches_mul_add"),
+    "randousha_extract_pc": (fr, "launches_extract_pc"),
+    "randousha_check": (fr, "launches_check"),
+    "sub_bcast_packed": (fk, "launches_sub_bcast"),
 }
 # plain versions run on CUDA tensors (module, counter): the card's paths
 # must leave them at 0; only the comparisons with the kernels move them
@@ -209,6 +234,8 @@ PLAIN_COUNTERS = {
     "mxu_matmul_plain": (mxu, "plain_calls_on_cuda"),
     "open_fused_plain": (fo, "plain_calls_on_cuda"),
     "open_direct_plain": (fod, "plain_calls_on_cuda"),
+    "fused_randousha_plain": (fr, "plain_calls_on_cuda"),
+    "sub_bcast_packed_plain": (fk, "plain_calls_on_cuda"),
 }
 # Least 32-bit integer instructions per Montgomery product on 8 words of 32
 # bits, counted as for MUL_ADD_OPS_PER_ELEMENT without its add: 8 x 8 x
@@ -1518,14 +1545,17 @@ def phase_programs(dev, reps):
             check(counts["open_direct"] == 0,
                   f"{tag}: the robust program ran a detect-only open")
         if prog == "generate_triples" and not fb:
-            check(counts["mul_add_packed"] == 1,
-                  f"{tag}: mul_add_packed launched {counts['mul_add_packed']}"
-                  " times, expected 1")
+            for name in ("mul_add_packed", "sub_bcast_packed"):
+                check(counts[name] == 1,
+                      f"{tag}: {name} launched {counts[name]} times, "
+                      "expected 1")
         del out
         torch.cuda.empty_cache()
     for s in (1, 2, 3):
         check(path[f"open_fused_k{s}"] > 0, f"the programs never ran K{s}")
     check(path["mul_add_packed"] > 0, "the programs never ran mul_add_packed")
+    check(path["sub_bcast_packed"] > 0,
+          "the programs never ran sub_bcast_packed")
     say("programs", ok=True, n=N, t=T, k=KT, outputs_per_call=N_OUT * KT,
         calls=rows, launches=path)
 
@@ -1901,8 +1931,325 @@ def phase_ntl(dev):
     return launches, rates
 
 
+# -- the per-column check: rows 5b, 6 and 11 --------------------------------
+
+def extract_pc_bound(n, n_outp, ncheckp, sp):
+    """Reads the receive tensor and the band, writes keep and the check
+    tensor; the int8 dot at all n columns (32 diagonals x 32n digits per
+    lane and column)."""
+    b = n * sp
+    nbytes = 4 * PL * b * (n + n_outp + ncheckp) + n * 8 * n * 128
+    return bound(nbytes, 2 * n * 32 * 32 * n * b, INT8_OPS_PER_S)
+
+
+def check_bound(n, k, ncheckp, sp):
+    """Reads the check tensor and the band, writes vals and errs; K2's dot
+    (nv + 1 columns x 32 diagonals x 32k digits) on every lane."""
+    lanes = ncheckp * sp
+    nv = n - k
+    nbytes = 4 * PL * n * lanes + 4 * PL * lanes + 4 * lanes \
+        + (nv + 1) * 8 * k * 128
+    return bound(nbytes, 2 * lanes * (nv + 1) * 32 * 32 * k, INT8_OPS_PER_S)
+
+
+def compare_extract_pc(dev, n, t, sp, cols):
+    """The per-column extraction against its plain version, and its two
+    traps: keep rows n_out.. are the first check columns, check columns
+    2t.. are zero."""
+    pts = fr._party_points(n)
+    n_out, ncheck = n - 2 * t, 2 * t
+    n_outp, ncheckp = -(-n_out // 8) * 8, -(-ncheck // 8) * 8
+    band = fr._encode_band_device(pts, n, dev)[0]
+    keep, chk = fr.randousha_extract(cols, band, n_out, n_outp, ncheckp)
+    keep_p, chk_p = fr._randousha_extract_plain(cols, band, n_out, n_outp,
+                                                ncheckp)
+    sync()
+    check(torch.equal(keep, keep_p) and torch.equal(chk, chk_p),
+          f"randousha_extract_pc != plain at n={n} t={t} sp={sp}")
+    check(torch.equal(keep[:, :, n_out:], chk[:, :, :n_outp - n_out])
+          and not bool(chk[:, :, ncheck:].any()),
+          "extract_pc: keep rows n_out.. must be the first check columns, "
+          "check columns 2t.. zero")
+    return max(max_abs_err(keep, keep_p), max_abs_err(chk, chk_p)), keep, \
+        chk, band
+
+
+def compare_check(chk, k, pts, want_errs=None):
+    """The per-column check against its plain version; honest check
+    tensors must give no error, a faulted one `want_errs`."""
+    vals, errs = fr.randousha_check(chk, k, pts)
+    vals_p, errs_p = fr._randousha_check_plain(chk, k, pts)
+    sync()
+    check(torch.equal(vals, vals_p) and torch.equal(errs, errs_p),
+          f"randousha_check != plain at k={k} {tuple(chk.shape)}")
+    if want_errs is None:
+        check(not bool(errs.any()), f"randousha_check: errors on honest "
+                                    f"columns at k={k}")
+    else:
+        check(torch.equal(errs, want_errs),
+              f"randousha_check: wrong per-lane counts at k={k}")
+    return max(max_abs_err(vals, vals_p), max_abs_err(errs, errs_p)), vals
+
+
+def compare_sub_bcast_flat(a, b):
+    """Row 11 against its plain version and against the generic
+    montgomery.sub_mod on the unpacked operands."""
+    got = fk.sub_bcast_packed(a, b)
+    want = fk._sub_bcast_packed_plain(a, b)
+    generic = pack_limbs(mont.sub_mod(unpack_limbs(a)[:, None],
+                                      unpack_limbs(b)))
+    sync()
+    check(torch.equal(got, want) and torch.equal(got, generic),
+          f"sub_bcast_packed != plain / sub_mod at {tuple(b.shape)}")
+    return max_abs_err(got, want)
+
+
+def phase_kernels_per_column(dev):
+    """Rows 5b, 6 and 11 against their plain versions on the card, bit for
+    bit: the per-column extraction and check at n=8, t=2, sp=128 and at
+    n=64, t=21, sp=4096, both degrees, the check also on a flipped word at
+    a validating party; the flat subtract at an unaligned [8, 3, 77] and at
+    the flat triple finish's [8, 90112] - [8, 64, 90112]. Times and
+    bounds."""
+    t0 = time.perf_counter()
+    err = {"randousha_extract_pc": 0, "randousha_check": 0,
+           "sub_bcast_packed": 0}
+    shapes, times = [], {}
+    for n, t, sp in ((8, 2, 128), (N, T, KT)):
+        pts = fr._party_points(n)
+        ncheck = 2 * t
+        for degree in (t, 2 * t):
+            cols = fr.randousha_deal((61, degree), n, t, degree, sp, pts,
+                                     dev)
+            e, keep, chk, band = compare_extract_pc(dev, n, t, sp, cols)
+            err["randousha_extract_pc"] = max(err["randousha_extract_pc"], e)
+            shapes.append(f"randousha_extract_pc n={n} t={t} sp={sp} "
+                          f"(degree {degree})")
+            k = degree + 1
+            e, _ = compare_check(chk, k, pts)
+            # a flipped word at a validating party: 1 at that lane only
+            c0, s0 = ncheck - 1, sp // 2 + 3
+            bad = chk.clone()
+            bad[3, n - 1, c0, s0] ^= 0x10
+            want = torch.zeros((chk.shape[2], sp), dtype=torch.int32,
+                               device=dev)
+            want[c0, s0] = 1
+            e2, _ = compare_check(bad, k, pts, want)
+            err["randousha_check"] = max(err["randousha_check"], e, e2)
+            shapes.append(f"randousha_check n={n} k={k} ncheckp="
+                          f"{chk.shape[2]} sp={sp} (+ a flipped word)")
+            del bad
+            if n == N:
+                tag = "" if degree == T else "_2t"
+                times["randousha_extract_pc" + tag] = (
+                    kernel_ms(lambda: fr.randousha_extract(
+                        cols, band, N_OUT, N_OUTP, NCHECKP), 10,
+                        "randousha_extract_pc_kernel"),
+                    timed_once(lambda: fr._randousha_extract_plain(
+                        cols, band, N_OUT, N_OUTP, NCHECKP)),
+                    extract_pc_bound(N, N_OUTP, NCHECKP, KT))
+                ktag = "" if degree == T else f"_k{k}"
+                times["randousha_check" + ktag] = (
+                    kernel_ms(lambda: fr.randousha_check(chk, k, pts), 10,
+                              "randousha_check_kernel"),
+                    timed_once(lambda: fr._randousha_check_plain(chk, k,
+                                                                 pts)),
+                    check_bound(N, k, NCHECKP, KT))
+            del cols, keep, chk
+    torch.cuda.empty_cache()
+
+    # row 11: unaligned, then the flat finish's shape, its subtrahend a
+    # column slice of the padded keep layout as the finish passes it
+    a = pack_limbs(rand_field(dev, (95, 1), (77,)))
+    b = pack_limbs(rand_field(dev, (96, 1), (3, 77)))
+    b[:, 1, :40] = a[:, :40]                           # a == b -> 0
+    err["sub_bcast_packed"] = compare_sub_bcast_flat(a, b)
+    shapes.append("sub_bcast_packed [8,77] - [8,3,77]")
+    cnt = N_OUT * KT
+    opened = pack_limbs(rand_field(dev, (97, 1), (cnt + 11,)))
+    a = opened[:, :cnt]                                # a prefix view
+    wide = pack_limbs(rand_field(dev, (98, 1), (N, N_OUTP * KT)))
+    b = wide[:, :, :cnt]                               # a column slice
+    err["sub_bcast_packed"] = max(err["sub_bcast_packed"],
+                                  compare_sub_bcast_flat(a, b))
+    shapes.append(f"sub_bcast_packed [8,{cnt}] - [8,{N},{cnt}] (views)")
+    times["sub_bcast_packed"] = (
+        kernel_ms(lambda: fk.sub_bcast_packed(a, b), 20,
+                  "sub_bcast_packed_kernel"),
+        timed_once(lambda: fk._sub_bcast_packed_plain(a, b)),
+        sub_bcast_bound(N * cnt, N))
+    say("per_column_kernels_vs_plain", ok=True,
+        tolerance="exact (torch.equal)", shapes=shapes,
+        timed_by={k: v[0][1] for k, v in times.items()},
+        seconds=round(time.perf_counter() - t0, 3))
+    return err, {k: (v[0][0], v[1], v[2]) for k, v in times.items()}
+
+
+def shift_dealer(cols, dealer, delta):
+    """Add delta to every share `dealer` dealt (receive tensor
+    [PL, dst, src, sp]): the dealing of secret + delta, degree unchanged."""
+    lim = unpack_limbs(cols[:, :, dealer])
+    dv = FpArray.from_int(delta, device=cols.device).limbs.reshape(L, 1, 1)
+    cols[:, :, dealer] = pack_limbs(mont.add_mod(lim, dv))
+    return cols
+
+
+def phase_per_column(dev, reps):
+    """_randousha_calls(64, 21, 4096, aggregate=False) in double and in
+    single mode, each call with the launch counts set to 0 just before and
+    read just after: nerr == 0, the extracted sharings equal the aggregated
+    run's, the opened check values equal at both degrees and to Python-int
+    interpolation on a sample; a flipped receive word and the known-rho
+    bypass are caught; ms per call and device-busy ms."""
+    t0 = time.perf_counter()
+    pts = fr._party_points(N)
+    key = (2026, 7)
+    run_d = fr._randousha_calls(N, T, KT, pts, aggregate=False, device=dev)
+    run_s = fr._randousha_calls(N, T, KT, pts, aggregate=False, single=True,
+                                device=dev)
+    run_a = fr._randousha_calls(N, T, KT, pts, device=dev)
+    run_d((1, 1))                       # bands and launchers
+    run_s((1, 1))
+    sync()
+    torch.cuda.empty_cache()
+    calls, full, out = {}, {}, {}
+    for mode, run, want in (("double", run_d, 2), ("single", run_s, 1)):
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        sync()
+        t1 = time.perf_counter()
+        out[mode] = run(key)
+        sync()
+        first_s = time.perf_counter() - t1
+        counts, plain = read_launches(), read_plain()
+        check(int(out[mode][-1]) == 0, f"per-column {mode}: nerr = "
+                                       f"{int(out[mode][-1])} on an honest run")
+        for name in ("randousha_deal", "randousha_extract_pc",
+                     "randousha_check"):
+            check(counts[name] == want, f"per-column {mode} launched {name} "
+                                        f"{counts[name]} times, want {want}")
+        check(counts["randousha_extract"] == 0
+              and counts["open_direct"] == 0,
+              f"per-column {mode}: an aggregate-mode kernel ran: {counts}")
+        check(not any(plain.values()),
+              f"per-column {mode}: a plain version ran on the card: {plain}")
+        full[mode] = counts
+        calls[mode] = {"launches": {k: v for k, v in counts.items() if v},
+                       "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                       "first_call_ms": first_s * 1e3}
+    keep_t, keep_2t, _ = out["double"]
+    check(torch.equal(out["single"][0], keep_t), "single and double keep_t")
+    ka, k2a, nerr_a = run_a(key)
+    check(int(nerr_a) == 0, "aggregated run: nerr != 0")
+    check(torch.equal(keep_t[:, :, :N_OUT], ka[:, :, :N_OUT])
+          and torch.equal(keep_2t[:, :, :N_OUT], k2a[:, :, :N_OUT]),
+          "per-column keep rows [:22] differ from the aggregated run's")
+    del ka, k2a, out
+
+    # the opened check values, stage by stage
+    kd_t, kd_2, ke, kc_t, kc_2 = run_d.parts
+    cols = kd_t(key)
+    _, chk_t = ke(cols)
+    del cols
+    vt, et = kc_t(chk_t)
+    cols = kd_2(key)
+    _, chk_2 = ke(cols)
+    del cols
+    v2, e2 = kc_2(chk_2)
+    check(not bool(et.any()) and not bool(e2.any())
+          and torch.equal(vt[:, :2 * T], v2[:, :2 * T]),
+          "opened check values differ between the degrees")
+    sample = [(0, 0), (1, 17), (2 * T - 1, KT - 1), (T, KT // 2)]
+    for c, s in sample:
+        for chk, vals, k in ((chk_t, vt, K), (chk_2, v2, 2 * T + 1)):
+            shares, _ = mont_ints(chk[:, :, c, s])
+            lam = _lam_int(list(pts[:k]), 0)
+            want = sum(l * y for l, y in zip(lam, shares[:k])) % P
+            check(mont_ints(vals[:, c, s])[0][0] == want,
+                  f"opened check value != Python ints at {(c, s)} k={k}")
+    del chk_t, chk_2
+
+    # faults: a flipped receive word at destination party 30 >= t+1 (a
+    # validating party at degree t): nerr > 0, and its degree-t errs are 1
+    # in every real check column at that slot and 0 elsewhere
+    s0, dst = KT // 3, K + (N - K) // 5
+
+    def flip(cols, degree):
+        if degree == T:
+            cols[3, dst, 7, s0] ^= 0x10
+        return cols
+
+    nerr_flip = int(run_d(key, tamper=flip)[2])
+    check(nerr_flip > 0, "per-column run missed a flipped receive word")
+    _, chk_t = ke(flip(kd_t(key), T))
+    _, et = kc_t(chk_t)
+    want = torch.zeros_like(et)
+    want[:2 * T, s0] = 1
+    check(torch.equal(et, want), "flipped word: degree-t errs not 1 in "
+                                 "every real check column at its slot")
+    del chk_t
+
+    # the known-rho bypass: two dealers who know rho shift their degree-2t
+    # secrets with delta1*S(d1) + delta2*S(d2) = 0
+    rho = mont_limbs_ints(fr._rho_plain(key, dev)[:, :2 * T])
+    d1, d2 = 2, 5
+    S = [sum(r * pow(pts[N_OUT + c], d, P) for c, r in enumerate(rho)) % P
+         for d in (d1, d2)]
+    check(S[0] != 0 and S[1] != 0, "degenerate rho sums")
+    delta1 = 12345
+    delta2 = (-delta1 * S[0] * pow(S[1], P - 2, P)) % P
+
+    def collude(cols, degree):
+        if degree == 2 * T:
+            shift_dealer(shift_dealer(cols, d1, delta1), d2, delta2)
+        return cols
+
+    nerr_agg = int(run_a(key, tamper=collude)[2])
+    nerr_pc = int(run_d(key, tamper=collude)[2])
+    check(nerr_agg == 0, "bypass failed: the aggregated check caught it")
+    check(nerr_pc > 0, "the per-column check missed the known-rho bypass")
+    say("per_column", ok=True, n=N, t=T, k=KT, calls=calls,
+        extracted_equal_aggregate_run=True,
+        python_int_samples=2 * len(sample), nerr_flipped_word=nerr_flip,
+        bypass_nerr={"aggregate": nerr_agg, "per_column": nerr_pc},
+        seconds=round(time.perf_counter() - t0, 3))
+
+    # timing: a new key every call; device time of one more, profiled
+    rates = {}
+    nrep = max(5, min(reps, 10))
+    for mode, run in (("double", run_d), ("single", run_s)):
+        run((3100, 0))
+        sync()
+        t1 = time.perf_counter()
+        for r in range(nrep):
+            res = run((3101, r))
+        sync()
+        dt = (time.perf_counter() - t1) / nrep
+        check(int(res[-1]) == 0, f"timed per-column {mode}: nerr != 0")
+        del res
+        busy_ms, nkern, top = device_busy_ms(lambda: run((3102, 0)), 6)
+        rates[mode] = {"ms_per_call": dt * 1e3,
+                       "sharings_per_s": N_OUT * KT / dt,
+                       "device_busy_ms_per_call": busy_ms,
+                       "device_kernels_per_call": nkern,
+                       "device_ms_top_kernels": top, "timed_calls": nrep,
+                       "launches_per_call": calls[mode]["launches"],
+                       "peak_device_bytes":
+                       calls[mode]["peak_device_bytes"],
+                       # CUDA events around one call (host gaps between
+                       # launches included): where the trace drops a
+                       # launch, busy time is a lower bound and this an
+                       # upper one
+                       "device_ms_cuda_events": timed_once(
+                           lambda: run((3103, 0)))}
+        if nkern < sum(calls[mode]["launches"].values()):
+            rates[mode]["device_busy_ms_per_call"] = None
+        torch.cuda.empty_cache()
+    return full["double"], rates
+
+
 def kernels_line(times, err, launches, launches_triples, launches_robust,
-                 launches_programs, launches_ntl, int_mm_ms):
+                 launches_programs, launches_ntl, launches_pc, int_mm_ms):
     """The rows of the `kernels` JSON line, one per kernel: its source, the
     TPU kernel it replaces, launches on its path, times and bound."""
     meta = {
@@ -1967,11 +2314,27 @@ def kernels_line(times, err, launches, launches_triples, launches_robust,
             "honeybadgermpc_tpu_torch/csrc/packed_arith.cu",
             "honeybadgermpc_tpu/ops/pallas_field.py:194",
             f"[{PL},{N * N_OUT * KT}]"),
+        "randousha_extract_pc": (
+            "honeybadgermpc_tpu_torch/csrc/randousha_extract.cu",
+            "honeybadgermpc_tpu/ops/fused_randousha.py:367",
+            f"n={N} (all {N} columns) ncheckp={NCHECKP} sp={KT}, degree t"),
+        "randousha_check": (
+            "honeybadgermpc_tpu_torch/csrc/open_fused.cu",
+            "honeybadgermpc_tpu/ops/fused_randousha.py:432",
+            f"n={N} k={K} ncheckp={NCHECKP} sp={KT}"),
+        "sub_bcast_packed": (
+            "honeybadgermpc_tpu_torch/csrc/packed_arith.cu",
+            "honeybadgermpc_tpu/ops/pallas_field.py:347",
+            f"[{PL},{N_OUT * KT}] - [{PL},{N},{N_OUT * KT}]"),
     }
     # extra shapes timed beside a kernel's main one
     extra = {"randousha_deal": ("randousha_deal_2t", f"k={2 * T + 1}"),
              "mont_mul": ("mont_mul_folded_band", f"[{L},{2 * T},{N}]"),
-             "mxu_fused2": (f"mxu_fused2_n{N}", f"B={N * C} k={K} n={N}")}
+             "mxu_fused2": (f"mxu_fused2_n{N}", f"B={N * C} k={K} n={N}"),
+             "randousha_extract_pc": ("randousha_extract_pc_2t",
+                                      "degree 2t"),
+             "randousha_check": (f"randousha_check_k{2 * T + 1}",
+                                 f"k={2 * T + 1}")}
     for s in (1, 2, 3):
         extra[f"open_fused_k{s}"] = (f"open_fused_k{s}_k{2 * T + 1}",
                                      f"k={2 * T + 1} C={C_2T}")
@@ -1979,7 +2342,8 @@ def kernels_line(times, err, launches, launches_triples, launches_robust,
                                      f"B={CODING_B} k=438 n=4 (k-streamed)")}
     robust_path = ("mont_mul", "fp_matmul_cios", "mxu_fused2", "mxu_redc")
     program_path = ("open_fused_k1", "open_fused_k2", "open_fused_k3",
-                    "mul_add_packed")
+                    "mul_add_packed", "sub_bcast_packed")
+    per_column_path = ("randousha_extract_pc", "randousha_check")
     kernels = []
     for name, (source, replaces, shape) in meta.items():
         ms, plain_ms, (bound_ms, bound_by) = times[name]
@@ -1988,6 +2352,8 @@ def kernels_line(times, err, launches, launches_triples, launches_robust,
         # the robust open for the last four); the open kernel serves all
         if name == "mxu_fused":      # the NTL path (phase 17) reaches it
             count = launches_ntl[name]
+        elif name in per_column_path:
+            count = launches_pc[name]
         elif name in program_path:
             count = launches_programs[name]
         elif name in robust_path:
@@ -2002,6 +2368,8 @@ def kernels_line(times, err, launches, launches_triples, launches_robust,
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "shape": shape, "share_of_bound": bound_ms / ms}
+        if name == "randousha_deal":
+            row["launches_per_column_call"] = launches_pc[name]
         if name in ("open_direct", "mont_mul"):
             row["launches_triple_call"] = launches_triples[name]
             row["launches_programs"] = launches_programs[name]
@@ -2066,6 +2434,14 @@ def main():
     launches_triples, trip = phase_triples(dev, args.reps)
     say("triple_timing", card=card, **trip)
     torch.cuda.empty_cache()
+    # phases 18-19 run here, beside the other fused-pipeline phases: late in
+    # a long process the profiler's trace drops launches
+    err6, times6 = phase_kernels_per_column(dev)
+    err.update(err6)
+    times.update(times6)
+    launches_pc, pc_rates = phase_per_column(dev, args.reps)
+    say("per_column_timing", card=card, **pc_rates)
+    torch.cuda.empty_cache()
 
     err3, times3, int_mm_ms = phase_kernels_robust(dev)
     err.update(err3)
@@ -2092,7 +2468,7 @@ def main():
 
     kernels = kernels_line(times, err, launches, launches_triples,
                            launches_robust, launches_programs, launches_ntl,
-                           int_mm_ms)
+                           launches_pc, int_mm_ms)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -116,6 +116,13 @@ def _declare(lib):
                                  i32, vp]
     lib.hb_mxu_redc.argtypes = [vp, vp, i64, i32, vp]
     lib.hb_mul_add_packed.argtypes = [vp, vp, vp, vp, i64, vp]
+    lib.hb_sub_bcast_packed.argtypes = [vp, vp, vp, i64, i64, i64, i64, i64,
+                                         vp]
+    lib.hb_randousha_extract_pc.argtypes = [vp, vp, vp, vp, i32, i32, i32,
+                                            i32, i32, i32, i32, init, i32,
+                                            vp]
+    lib.hb_randousha_check.argtypes = [vp, vp, vp, vp, i32, i32, i64, i64,
+                                       i32, i32, init, i32, vp]
     fused = (lib.hb_open_fused_k1, lib.hb_open_fused_k2,
              lib.hb_open_fused_k3)
     for fn in fused:
@@ -126,7 +133,8 @@ def _declare(lib):
                lib.hb_mul_add_packed4, lib.hb_sub_bcast_packed4,
                lib.hb_mont_mul, lib.hb_fp_matmul_cios, lib.hb_mxu_fused2,
                lib.hb_mxu_fused, lib.hb_mxu_redc,
-               lib.hb_mul_add_packed) + fused:
+               lib.hb_mul_add_packed, lib.hb_sub_bcast_packed,
+               lib.hb_randousha_extract_pc, lib.hb_randousha_check) + fused:
         fn.restype = ctypes.c_int
 
 

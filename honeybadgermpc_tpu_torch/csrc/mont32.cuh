@@ -1,5 +1,6 @@
 // 32-bit-word Montgomery arithmetic for the port's elementwise and CIOS
-// matmul kernels (csrc/mont_mul.cu, csrc/fp_matmul_cios.cu).
+// matmul kernels (csrc/mont_mul.cu, csrc/fp_matmul_cios.cu,
+// csrc/packed_arith.cu).
 //
 // An element is 8 little-endian words of 32 bits (two 16-bit limbs of the
 // reference's layout per word). The multiplier is CIOS over 32-bit words
@@ -105,6 +106,30 @@ __device__ __forceinline__ void add_mod_w(const uint32_t (&a)[NW],
     c = s >> 32;
   }
   cond_sub_p(out, static_cast<uint32_t>(c));
+}
+
+// out = (a - b) mod p: the borrow chain on the 8 words, then p added back
+// (carry dropped) when a < b. For any inputs it gives the words of the
+// reference's chains on 16-bit limbs (ops/pallas_field.py::_sub_mod_reg):
+// both compute a - b + [a < b] * p mod 2^256.
+__device__ __forceinline__ void sub_mod_w(const uint32_t (&a)[NW],
+                                          const uint32_t (&b)[NW],
+                                          uint32_t (&out)[NW]) {
+  uint32_t borrow = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    const uint64_t v = static_cast<uint64_t>(a[i]) - b[i] - borrow;
+    out[i] = static_cast<uint32_t>(v);
+    borrow = static_cast<uint32_t>(v >> 63);
+  }
+  const uint32_t mask = 0u - borrow;
+  uint64_t c = 0;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    const uint64_t s = static_cast<uint64_t>(out[i]) + (kPW[i] & mask) + c;
+    out[i] = static_cast<uint32_t>(s);
+    c = s >> 32;
+  }
 }
 
 }  // namespace hb32

@@ -19,6 +19,18 @@
 //                coefficients -> sec [PL, k, C]; columns k..n-1 predict
 //                the other psi values; mismatches go to errs[0]
 //
+// A fourth instantiation serves the fused RanDouSha pipeline's per-column
+// check and replaces honeybadgermpc_tpu/ops/fused_randousha.py::_kc_kernel
+// (called through kc_call):
+//
+//   KC  check    lane (col, s) of the check tensor chk [PL, n, ncheckp, sp]
+//                (the 2t discarded columns every party extracted): K2's
+//                function with n_dst -> ncheckp and C -> sp. The first k
+//                parties' shares decode the column's value at 0 -> vals
+//                [PL, ncheckp, sp]; the other n-k are validated, and the
+//                lane's mismatch count goes to errs[lane] as it is, not to
+//                a destination
+//
 // In the simulation every destination's R2 input is the same gathered
 // vector, so K3 decodes it once (lanes = chunks, not destinations x
 // chunks); the caller broadcasts the secrets and charges errs[0] to every
@@ -36,7 +48,7 @@
 // shared memory; every warp then walks its slot's columns with no block
 // barrier: band fragments from device memory one k-step ahead,
 // mma.sync.m16n8k32.s8, a per-warp transpose to one lane per thread, the
-// fold/REDC epilogue in registers, then a store or a compare. The three
+// fold/REDC epilogue in registers, then a store or a compare. The four
 // stages differ only in how a lane finds its k operands, what a column
 // does with its result, and where mismatches are charged:
 //
@@ -53,7 +65,8 @@ struct LaneMap {
   long long nlanes;   // lanes of the launch
   long long C;        // chunks per group of lanes
   long long sw;       // word-plane stride of src
-  long long sp;       // stride of one lane group (source or destination)
+  long long sp;       // stride of one lane group (source, destination or
+                      // check column)
   long long si;       // stride of one operand
 };
 
@@ -98,7 +111,7 @@ __device__ __forceinline__ void open_fused_body(
   for (int col = slot; col < ncol; col += wg) {
     // the operand this column's prediction is checked against, if any
     int cmp = -1;
-    if (STAGE == 2 && col < nv) cmp = k + col;
+    if ((STAGE == 2 || STAGE == 4) && col < nv) cmp = k + col;
     if (STAGE == 3 && col >= k) cmp = col;
     uint32_t recv[PL];
 #pragma unroll
@@ -126,9 +139,9 @@ __device__ __forceinline__ void open_fused_body(
     if (STAGE == 1) {                      // cols [PL, src, dst, C]
       at = (static_cast<size_t>(grp) * n + col) * m.C + c;
       plane = static_cast<size_t>(n) * n * m.C;
-    } else if (STAGE == 2) {               // vals [PL, n, C]: lane g
+    } else if (STAGE == 2 || STAGE == 4) {  // vals [PL, lanes]: lane g
       at = static_cast<size_t>(g);
-      plane = static_cast<size_t>(n) * m.C;
+      plane = static_cast<size_t>(m.nlanes);
     } else {                               // sec [PL, k, C]
       at = static_cast<size_t>(col) * m.C + c;
       plane = static_cast<size_t>(k) * m.C;
@@ -136,7 +149,8 @@ __device__ __forceinline__ void open_fused_body(
 #pragma unroll
     for (int w = 0; w < PL; ++w) out[w * plane + at] = words[w];
   }
-  if (bad) atomicAdd(&errs[STAGE == 2 ? grp : 0], bad);
+  // the column slots of a lane add into one count: integer adds, order-free
+  if (bad) atomicAdd(&errs[STAGE == 2 ? grp : (STAGE == 4 ? g : 0)], bad);
 }
 
 __global__ void open_fused_k1_kernel(const uint32_t* __restrict__ src,
@@ -164,6 +178,15 @@ __global__ void open_fused_k3_kernel(const uint32_t* __restrict__ src,
                                      LaneMap m, int tl, FoldConst fc) {
   extern __shared__ __align__(16) unsigned char smem[];
   open_fused_body<3>(smem, src, band, out, errs, n, k, n, m, tl, fc);
+}
+
+__global__ void randousha_check_kernel(const uint32_t* __restrict__ src,
+                                       const int4* __restrict__ band,
+                                       uint32_t* __restrict__ out,
+                                       int* __restrict__ errs, int n, int k,
+                                       LaneMap m, int tl, FoldConst fc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  open_fused_body<4>(smem, src, band, out, errs, n, k, n - k + 1, m, tl, fc);
 }
 
 // Dynamic shared memory of a launch, allowed above 48 KB for `kernel`.
@@ -234,6 +257,28 @@ extern "C" int hb_open_fused_k3(const void* src, const void* band, void* out,
   const unsigned grid = static_cast<unsigned>((m.nlanes + tl - 1) / tl);
   hb::open_fused_k3_kernel<<<grid, tl * wg, smem,
                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(src), static_cast<const int4*>(band),
+      static_cast<uint32_t*>(out), static_cast<int*>(errs), n, k, m, tl,
+      hb::fold_const(init, bias));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// src: the check tensor [PL, n, ncheckp, sp]; out: vals [PL, ncheckp, sp];
+// errs: int32 [ncheckp, sp], zeroed by the caller.
+extern "C" int hb_randousha_check(const void* src, const void* band,
+                                  void* out, void* errs, int n, int k,
+                                  long long sp, long long ncheckp, int tl,
+                                  int wg, const uint32_t* init, int bias,
+                                  void* stream) {
+  const long long lanes = ncheckp * sp;     // lane = col * sp + slot
+  const hb::LaneMap m{lanes, sp, static_cast<long long>(n) * lanes, sp,
+                      lanes};
+  size_t smem = 0;
+  const int rc = hb::prepare(hb::randousha_check_kernel, k, tl, wg, &smem);
+  if (rc != 0) return rc;
+  const unsigned grid = static_cast<unsigned>((m.nlanes + tl - 1) / tl);
+  hb::randousha_check_kernel<<<grid, tl * wg, smem,
+                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(src), static_cast<const int4*>(band),
       static_cast<uint32_t*>(out), static_cast<int*>(errs), n, k, m, tl,
       hb::fold_const(init, bias));

@@ -11,6 +11,10 @@
 //   mul_add_packed     (a*b + c) mod p on flat [PL, B]; replaces ops/
 //                      pallas_field.py::_mul_add_kernel (called through
 //                      mul_add_packed)
+//   sub_bcast_packed   (a - b) mod p on flat words, a [PL, B] shared by all
+//                      n parties of b [PL, n, B]; replaces ops/
+//                      pallas_field.py::_sub_bcast_kernel (called through
+//                      sub_bcast_packed)
 //
 // Same functions, bit for bit: 8 packed words -> 16 limbs of 16 bits, the
 // carry-save CIOS Montgomery product (per outer step every accumulator limb
@@ -46,6 +50,13 @@
 // 5.77 M elements of the eager triple finish at n=64, k=4096), the function
 // needing about 320 instructions per element on 32-bit words. One thread
 // per element, every word plane read and written coalesced.
+//
+// sub_bcast_packed is the same on 32-bit words: mont32.cuh's borrow and
+// add-back chains on the 8 words as read. Bound by bytes: 32 bytes of b
+// read and 32 written per element, a read once per party row from L2
+// (0.111 ms at B = 90,112, n = 64, the flat triple finish), against about
+// 24 instructions per element. B is taken as it is: the last block masks
+// the edge (the reference pads B to its tile, SUBS*512).
 #include "field_core.cuh"
 #include "mont32.cuh"
 
@@ -190,6 +201,29 @@ __global__ void mul_add_packed_kernel(const uint32_t* __restrict__ a,
   for (int w = 0; w < NW; ++w) out[static_cast<size_t>(w) * B + g] = res[w];
 }
 
+__global__ void sub_bcast_packed_kernel(const uint32_t* __restrict__ a,
+                                        const uint32_t* __restrict__ b,
+                                        uint32_t* __restrict__ out,
+                                        long long M, long long B,
+                                        long long a_stride, long long b_plane,
+                                        long long b_row) {
+  const long long g =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (g >= M) return;
+  const long long party = g / B;
+  const size_t e = static_cast<size_t>(g - party * B);
+  const size_t bg = static_cast<size_t>(party * b_row) + e;
+  uint32_t wa[NW], wb[NW], res[NW];
+#pragma unroll
+  for (int w = 0; w < NW; ++w) {
+    wa[w] = a[static_cast<size_t>(w) * a_stride + e];
+    wb[w] = b[static_cast<size_t>(w) * b_plane + bg];
+  }
+  sub_mod_w(wa, wb, res);
+#pragma unroll
+  for (int w = 0; w < NW; ++w) out[static_cast<size_t>(w) * M + g] = res[w];
+}
+
 }  // namespace hb32
 
 extern "C" int hb_mul_add_packed(const void* a, const void* b, const void* c,
@@ -225,5 +259,21 @@ extern "C" int hb_sub_bcast_packed4(const void* a, const void* b, void* out,
                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
       static_cast<uint32_t*>(out), M, RS, a_stride);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// a: plane w at a + w*a_stride; b: row (w, party) at b + w*b_plane +
+// party*b_row (rows dense, so b may be a column slice of a wider tensor);
+// out: [PL, n, B] dense, M = n*B elements per plane.
+extern "C" int hb_sub_bcast_packed(const void* a, const void* b, void* out,
+                                   long long M, long long B,
+                                   long long a_stride, long long b_plane,
+                                   long long b_row, void* stream) {
+  const int threads = 256;
+  const unsigned grid = static_cast<unsigned>((M + threads - 1) / threads);
+  hb32::sub_bcast_packed_kernel<<<grid, threads, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(a), static_cast<const uint32_t*>(b),
+      static_cast<uint32_t*>(out), M, B, a_stride, b_plane, b_row);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,48 +1,59 @@
-// randousha_extract: hyperinvertible extraction with the verification check
-// folded into the band (aggregate mode).
+// randousha_extract: hyperinvertible extraction, in the two verification
+// modes of the fused RanDouSha pipeline.
 //
 // Replaces the TPU kernel honeybadgermpc_tpu/ops/fused_randousha.py::
-// _ke_kernel with agg=True (called through ke_call). Same function: a lane
-// is one (destination party, slot) pair. The n values the party received in
-// that slot, one from every dealer, are the coefficients of a polynomial;
-// the band re-evaluates it at the first n_out party points (the extracted
-// random sharings, "keep") and at ONE more column that carries the
-// run-random rho-weighted sum of the 2t discarded evaluations (the
-// aggregated check sharing z). The band is built on the device for every
-// run (ops/fused_randousha.py::folded_band) and arrives in fragment order.
+// _ke_kernel (called through ke_call), both modes. Same function: a lane is
+// one (destination party, slot) pair. The n values the party received in
+// that slot, one from every dealer, are the coefficients of a polynomial,
+// and the band re-evaluates it at a set of columns:
 //
-//   cols  uint32 [PL, n, n, sp]      receive tensor [word, dst, src, slot]
-//   band  int4   [ncp, n, 2, 32]     column, k-step (= source), m-tile,
-//                                    thread (ops/fused_open.py::_kernel_band)
-//   keep  uint32 [PL, n, n_outp, sp] rows < n_out: extracted sharings;
-//                                    row n_out: the check sharing; rows
-//                                    above it: zero sharings (their band
-//                                    columns are zero, so no dot is run)
-//   z     uint32 [PL, n, sp]         the check sharing alone, for its open
+//   randousha_extract_kernel     (agg=True) the first n_out party points
+//       (the extracted random sharings, "keep") and ONE more column that
+//       carries the run-random rho-weighted sum of the 2t discarded
+//       evaluations (the aggregated check sharing z). The band is built on
+//       the device for every run (ops/fused_randousha.py::folded_band).
+//   randousha_extract_pc_kernel  (agg=False) all n party points: the full
+//       re-encode. Columns below n_outp go to keep (so keep rows n_out ..
+//       n_outp-1 are the first check columns, as in the reference), columns
+//       n_out .. n-1 go to the check tensor at col - n_out, and check
+//       columns ncheck .. ncheckp-1 are written as zero.
+//
+//   cols  uint32 [PL, n, n, sp]        receive tensor [word, dst, src, slot]
+//   band  int4   [ncp, n, 2, 32]       column, k-step (= source), m-tile,
+//                                      thread (ops/fused_open.py::
+//                                      _kernel_band), built on the device
+//   keep  uint32 [PL, n, n_outp, sp]   agg: rows < n_out extracted sharings,
+//                                      row n_out the check sharing, rows
+//                                      above it zero sharings (zero band
+//                                      columns: no dot is run)
+//   z     uint32 [PL, n, sp]           agg: the check sharing alone
+//   chk   uint32 [PL, n, ncheckp, sp]  per-column: the 2t check columns
 //
 // What bounds it on an H100: operations. Per lane the int8 dot is
-// (n_out + 1) columns x 32 diagonals x 32n digits against 32n bytes read
-// and 32 (n_outp + 1) written; the fold/REDC epilogue on the CUDA cores
-// comes on top of the dot.
+// (n_out + 1) columns (agg) or n columns (per-column) x 32 diagonals x 32n
+// digits against 32n bytes read and 32 (n_outp + 1) or 32 (n_outp +
+// ncheckp) written; the fold/REDC epilogue on the CUDA cores comes on top
+// of the dot.
 //
 // Design: the shape of open_direct.cu at contraction length n. The digit
-// planes of a lane take 32n bytes (2 KB at n = 64), so a block holds 32
-// lanes and 16 column slots. Thread (slot, lane) builds the planes of
-// sources slot, slot+WG, ... (a warp reads 32 neighbouring slots of one
+// planes of a lane take 32n bytes (2 KB at n = 64), so a block holds 32 or
+// 64 lanes and 16 or 8 column slots. Thread (slot, lane) builds the planes
+// of sources slot, slot+WG, ... (a warp reads 32 neighbouring slots of one
 // source row); after one barrier every warp walks its slot's columns on its
 // own and stores 8 words per lane and column, neighbouring lanes to
-// neighbouring addresses. Offsets pass 2^31 bytes: size_t throughout.
+// neighbouring addresses. The two modes share that body and differ only in
+// which columns have a dot and where a column's words go. Offsets pass
+// 2^31 bytes: size_t throughout.
 #include "field_core.cuh"
 
 namespace hb {
 
-__global__ void randousha_extract_kernel(const uint32_t* __restrict__ cols,
-                                         const int4* __restrict__ band,
-                                         uint32_t* __restrict__ keep,
-                                         uint32_t* __restrict__ z, int n,
-                                         int sp, int n_out, int n_outp,
-                                         int tl, FoldConst fc) {
-  extern __shared__ __align__(16) unsigned char smem[];
+template <bool PC>
+__device__ __forceinline__ void extract_body(
+    unsigned char* smem, const uint32_t* __restrict__ cols,
+    const int4* __restrict__ band, uint32_t* __restrict__ keep,
+    uint32_t* __restrict__ out2, int n, int sp, int n_out, int n_outp,
+    int ncheckp, int tl, const FoldConst& fc) {
   const int wg = blockDim.x / tl;
   const int tid = threadIdx.x;
   const int laneid = tid & 31;
@@ -72,11 +83,16 @@ __global__ void randousha_extract_kernel(const uint32_t* __restrict__ cols,
 
   __syncthreads();                         // planes are ready
 
-  // no block barrier below: each warp walks its slot's columns on its own
-  const int ncols = (n_outp > n_out + 1) ? n_outp : n_out + 1;
+  // no block barrier below: each warp walks its slot's columns on its own.
+  // agg: columns 0..n_out have a dot; per-column: columns 0..n-1, and
+  // columns n..n_out+ncheckp-1 are the zero padding of the check tensor.
+  const int ndot = PC ? n : n_out + 1;
+  int ncols = PC ? n_out + ncheckp : n_out + 1;
+  if (ncols < n_outp) ncols = n_outp;
+  if (PC && ncols < n) ncols = n;
   for (int col = slot; col < ncols; col += wg) {
     uint32_t words[PL];
-    if (col <= n_out) {                    // warp-uniform
+    if (col < ndot) {                      // warp-uniform
       int acc[2][4][4];
       band_mma_column(acc, s.planes, stride, lane - laneid,
                       band + static_cast<size_t>(col) * n * 64, n, laneid);
@@ -85,7 +101,7 @@ __global__ void randousha_extract_kernel(const uint32_t* __restrict__ cols,
       band_mma_diagonals(acc, s_d, laneid, ds);
       fold_reduce_bal(ds, fc, limbs);
       pack16(limbs, words);
-    } else {                               // zero band column: zero sharing
+    } else {                               // zero column: zero sharing
 #pragma unroll
       for (int w = 0; w < PL; ++w) words[w] = 0u;
     }
@@ -96,12 +112,58 @@ __global__ void randousha_extract_kernel(const uint32_t* __restrict__ cols,
         keep[((static_cast<size_t>(w) * n + dst) * n_outp + col) * sp + sl] =
             words[w];
     }
-    if (col == n_out) {
+    if (PC && col >= n_out && col - n_out < ncheckp) {
+      const int c = col - n_out;
 #pragma unroll
       for (int w = 0; w < PL; ++w)
-        z[(static_cast<size_t>(w) * n + dst) * sp + sl] = words[w];
+        out2[((static_cast<size_t>(w) * n + dst) * ncheckp + c) * sp + sl] =
+            words[w];
+    }
+    if (!PC && col == n_out) {
+#pragma unroll
+      for (int w = 0; w < PL; ++w)
+        out2[(static_cast<size_t>(w) * n + dst) * sp + sl] = words[w];
     }
   }
+}
+
+__global__ void randousha_extract_kernel(const uint32_t* __restrict__ cols,
+                                         const int4* __restrict__ band,
+                                         uint32_t* __restrict__ keep,
+                                         uint32_t* __restrict__ z, int n,
+                                         int sp, int n_out, int n_outp,
+                                         int tl, FoldConst fc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  extract_body<false>(smem, cols, band, keep, z, n, sp, n_out, n_outp, 0, tl,
+                      fc);
+}
+
+__global__ void randousha_extract_pc_kernel(const uint32_t* __restrict__ cols,
+                                            const int4* __restrict__ band,
+                                            uint32_t* __restrict__ keep,
+                                            uint32_t* __restrict__ chk, int n,
+                                            int sp, int n_out, int n_outp,
+                                            int ncheckp, int tl,
+                                            FoldConst fc) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  extract_body<true>(smem, cols, band, keep, chk, n, sp, n_out, n_outp,
+                     ncheckp, tl, fc);
+}
+
+// Dynamic shared memory of a launch, allowed above 48 KB for `kernel`.
+template <typename Kernel>
+int prepare_extract(Kernel kernel, int n, int tl, int wg, size_t* smem) {
+  *smem = band_smem_bytes(n, tl, wg, 0);
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(*smem)));
+}
+
+FoldConst extract_fold_const(const uint32_t* init, int bias) {
+  FoldConst fc;
+  for (int j = 0; j < NL; ++j) fc.init[j] = init[j];
+  fc.bias = bias;
+  return fc;
 }
 
 }  // namespace hb
@@ -111,20 +173,35 @@ extern "C" int hb_randousha_extract(const void* cols, const void* band,
                                     int n_out, int n_outp, int tl, int wg,
                                     const uint32_t* init, int bias,
                                     void* stream) {
-  hb::FoldConst fc;
-  for (int j = 0; j < hb::NL; ++j) fc.init[j] = init[j];
-  fc.bias = bias;
-  const size_t smem = hb::band_smem_bytes(n, tl, wg, 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      hb::randousha_extract_kernel,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  size_t smem = 0;
+  const int rc =
+      hb::prepare_extract(hb::randousha_extract_kernel, n, tl, wg, &smem);
+  if (rc != 0) return rc;
   const long long B = static_cast<long long>(n) * sp;
   const unsigned grid = static_cast<unsigned>((B + tl - 1) / tl);
   hb::randousha_extract_kernel<<<grid, tl * wg, smem,
                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(cols), static_cast<const int4*>(band),
       static_cast<uint32_t*>(keep), static_cast<uint32_t*>(z), n, sp, n_out,
-      n_outp, tl, fc);
+      n_outp, tl, hb::extract_fold_const(init, bias));
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int hb_randousha_extract_pc(const void* cols, const void* band,
+                                       void* keep, void* chk, int n, int sp,
+                                       int n_out, int n_outp, int ncheckp,
+                                       int tl, int wg, const uint32_t* init,
+                                       int bias, void* stream) {
+  size_t smem = 0;
+  const int rc =
+      hb::prepare_extract(hb::randousha_extract_pc_kernel, n, tl, wg, &smem);
+  if (rc != 0) return rc;
+  const long long B = static_cast<long long>(n) * sp;
+  const unsigned grid = static_cast<unsigned>((B + tl - 1) / tl);
+  hb::randousha_extract_pc_kernel<<<grid, tl * wg, smem,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(cols), static_cast<const int4*>(band),
+      static_cast<uint32_t*>(keep), static_cast<uint32_t*>(chk), n, sp,
+      n_out, n_outp, ncheckp, tl, hb::extract_fold_const(init, bias));
   return static_cast<int>(cudaGetLastError());
 }

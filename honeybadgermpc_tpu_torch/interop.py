@@ -85,3 +85,20 @@ def from_reference_receive(cols, device=torch.device("cuda")):
     out = arr.transpose(2, 1, 4, 3, 0, 5).reshape(PL, njt * jt, n,
                                                   nblk * tbw)
     return _from_u32(out, PL, "receive tensor", device)
+
+
+def from_reference_check(chk, device=torch.device("cuda")):
+    """The reference's per-column check tensor np.uint32 [nblk, njt, PL,
+    JT, ncheckp, TBW] (slot block, party group, word, party within the
+    group, check column, slot within the block) -> the port's int32
+    [PL, n, ncheckp, sp] (ops/fused_randousha.py). A pure permutation. The
+    check outputs need none: vals [PL, ncheckp, sp] has one layout in both
+    packages, errs is the reference's [1, ncheckp, sp] without its 1."""
+    arr = np.asarray(chk)
+    if arr.dtype != np.uint32 or arr.ndim != 6 or arr.shape[2] != PL:
+        raise ValueError(f"check tensor must be np.uint32 [nblk, njt, {PL}, "
+                         f"JT, ncheckp, TBW], got {arr.dtype} {arr.shape}")
+    nblk, njt, _, jt, ncheckp, tbw = arr.shape
+    out = arr.transpose(2, 1, 3, 4, 0, 5).reshape(PL, njt * jt, ncheckp,
+                                                  nblk * tbw)
+    return _from_u32(out, PL, "check tensor", device)

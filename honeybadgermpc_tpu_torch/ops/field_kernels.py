@@ -1,11 +1,10 @@
 """Field kernels of the port — counterpart of ``ops/pallas_field.py``.
 
-So far: the field sampler ``rand_limbs`` (the reference's
+Every kernel of it: the field sampler ``rand_limbs`` (the reference's
 ``rand_limbs_pallas``), the packed 4D finish arithmetic
-``mul_add_packed4`` / ``sub_bcast_packed4``, its flat counterpart
-``mul_add_packed``, the elementwise Montgomery multiply
-``mont_mul_pallas`` and the CIOS matmul ``fp_matmul_pallas``; the flat
-``sub_bcast_packed`` (no caller in the reference) is not ported yet.
+``mul_add_packed4`` / ``sub_bcast_packed4``, their flat counterparts
+``mul_add_packed`` / ``sub_bcast_packed``, the elementwise Montgomery
+multiply ``mont_mul_pallas`` and the CIOS matmul ``fp_matmul_pallas``.
 
 Sampler: element e draws Threefry-2x32-20 with counters
 (s, e), s = 0..5, taking the words of each call in the order
@@ -19,9 +18,9 @@ On a CUDA device the sampler is the hand-written kernel
 
 Finish arithmetic: ``(a*b + c) mod p`` and ``(a - b) mod p`` on PACKED
 words in the extraction's native layout ``[PL, n, R, S]``, the two
-elementwise passes of the packed triple finish, and ``(a*b + c) mod p`` on
-flat packed words ``[PL, B]`` (the unpacked finish). On CUDA tensors they
-are the kernels of ``csrc/packed_arith.cu``; the plain versions go through
+elementwise passes of the packed triple finish, and the same two on flat
+packed words ``[PL, B]`` (the unpacked finish). On CUDA tensors they are
+the kernels of ``csrc/packed_arith.cu``; the plain versions go through
 ``unpack_limbs`` and ``ops/montgomery.py``.
 
 Elementwise multiply and CIOS matmul: ``mont_mul_pallas`` (the kernel
@@ -49,8 +48,12 @@ launches = 0                # rand_limbs
 launches_mul_add4 = 0       # mul_add_packed4
 launches_sub_bcast4 = 0     # sub_bcast_packed4
 launches_mul_add = 0        # mul_add_packed
+launches_sub_bcast = 0      # sub_bcast_packed
 launches_mont_mul = 0       # mont_mul_pallas
 launches_matmul = 0         # fp_matmul_pallas
+# times sub_bcast_packed's plain version ran on a CUDA tensor: the card's
+# paths must keep this at 0 (only a comparison against the kernel may move it)
+plain_calls_on_cuda = 0
 
 
 def _rotl(x, r):
@@ -262,6 +265,53 @@ def sub_bcast_packed4(a, b):
     if b.is_cuda:
         return _sub_bcast_packed4_cuda(a, b)
     return _sub_bcast_packed4_plain(a, b)
+
+
+def _sub_bcast_packed_plain(a, b, chunk: int = 8):
+    """Plain PyTorch version of sub_bcast_packed: a [PL, B], b [PL, n, B]
+    -> [PL, n, B]. The broadcast subtract of the 4D one, on flat words."""
+    global plain_calls_on_cuda
+    if a.is_cuda:
+        plain_calls_on_cuda += 1
+    return _sub_bcast_packed4_plain(a, b, chunk)
+
+
+def sub_bcast_packed(a, b):
+    """(a - b) mod p on flat PACKED words: the shared minuend `a` int32
+    [PL, B] (one copy of an opened value) against per-party `b`
+    [PL, n, B] -> [PL, n, B] (dense), for any B (the reference pads B to
+    its TPU tile; the kernel masks its edge). The n-replicated minuend
+    never exists in memory. `a` and `b` may be views whose rows lie apart
+    (a prefix of a longer opened tensor, a column slice of the padded keep
+    tensor): only each row must be dense.
+    csrc/packed_arith.cu::sub_bcast_packed_kernel on CUDA tensors, the
+    plain version on CPU ones."""
+    global launches_sub_bcast
+    if b.dtype != torch.int32 or b.dim() != 3 or b.shape[0] != PL:
+        raise ValueError(f"b must be int32 [{PL}, n, B], got "
+                         f"{b.dtype} {tuple(b.shape)}")
+    _, n, B = b.shape
+    if a.dtype != torch.int32 or tuple(a.shape) != (PL, B) \
+            or a.device != b.device:
+        raise ValueError(f"a must be int32 [{PL}, {B}] on {b.device}, got "
+                         f"{a.dtype} {tuple(a.shape)} on {a.device}")
+    if B > 1 and (a.stride(1) != 1 or b.stride(2) != 1):
+        raise ValueError("each word row of a and of b must be dense")
+    if not b.is_cuda:
+        return _sub_bcast_packed_plain(a, b)
+    from .._build import lib
+    out = torch.empty((PL, n, B), dtype=torch.int32, device=b.device)
+    if b.numel() == 0:
+        return out
+    rc = lib().hb_sub_bcast_packed(a.data_ptr(), b.data_ptr(),
+                                   out.data_ptr(), n * B, B, a.stride(0),
+                                   b.stride(0), b.stride(1),
+                                   _launch_stream(b))
+    launches_sub_bcast += 1
+    if rc != 0:
+        raise RuntimeError(
+            f"sub_bcast_packed kernel launch failed: CUDA error {rc}")
+    return out
 
 
 def _mul_add_packed_plain(a, b, c, chunk: int = 1 << 20):

@@ -489,22 +489,32 @@ def _k1_plain(view, points: tuple):
     return cols
 
 
+def _r1_lanes_plain(lanes, points: tuple, k: int):
+    """K2's function lane by lane: lanes int32 [PL, n, nl] (operand i of
+    lane g at [:, i, g]) -> (vals int32 [PL, nl], the value at 0 decoded
+    from the first k operands; bad int32 [nl], how many of the other n-k
+    differ from their prediction). Shared by K2's plain version and the
+    per-column check's (ops/fused_randousha.py)."""
+    _, n, nl = lanes.shape
+    nv = n - k
+    (_, (band, ncp, _), _), init, bias = _open_bands(points, k, lanes.device)
+    vals = torch.empty((PL, nl), dtype=torch.int32, device=lanes.device)
+    bad = torch.empty((nl,), dtype=torch.int32, device=lanes.device)
+    for l0 in range(0, nl, _PLAIN_LANES):
+        l1 = min(nl, l0 + _PLAIN_LANES)
+        planes = _planes_of_packed(lanes[:, :k, l0:l1])
+        out = _pack16(_band_dot_fold(band, planes, ncp, init, bias))
+        vals[:, l0:l1] = out[:, nv]
+        bad[l0:l1] = _mismatch(out[:, :nv], lanes[:, k:, l0:l1])
+    return vals, bad
+
+
 def _k2_plain(cols, points: tuple, k: int):
     """Plain version of K2: cols int32 [PL, n_src, n_dst, C] -> (vals int32
     [PL, n, C] = psi_j(0) of every chunk, errs int32 [n] per destination)."""
     _count_plain(cols)
     _, n, _, C = cols.shape
-    nv = n - k
-    (_, (band, ncp, _), _), init, bias = _open_bands(points, k, cols.device)
-    lanes = cols.reshape(PL, n, n * C)          # lane j*C + c
-    vals = torch.empty((PL, n * C), dtype=torch.int32, device=cols.device)
-    bad = torch.empty((n * C,), dtype=torch.int32, device=cols.device)
-    for l0 in range(0, n * C, _PLAIN_LANES):
-        l1 = min(n * C, l0 + _PLAIN_LANES)
-        planes = _planes_of_packed(lanes[:, :k, l0:l1])
-        out = _pack16(_band_dot_fold(band, planes, ncp, init, bias))
-        vals[:, l0:l1] = out[:, nv]
-        bad[l0:l1] = _mismatch(out[:, :nv], lanes[:, k:, l0:l1])
+    vals, bad = _r1_lanes_plain(cols.reshape(PL, n, n * C), points, k)
     return vals.reshape(PL, n, C), bad.reshape(n, C).sum(1).to(torch.int32)
 
 

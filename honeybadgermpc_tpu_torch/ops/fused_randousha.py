@@ -1,9 +1,10 @@
 """Fused single-device n-party RanSha / RanDouSha: deal, extract, check.
 
-Counterpart of ``honeybadgermpc_tpu/ops/fused_randousha.py`` (aggregate
-mode). The offline preprocessing hot path as a chain of kernels with no
-reshaping pass between stages; the dealer's randomness is generated inside
-the deal kernel, so coefficients never exist in device memory:
+Counterpart of ``honeybadgermpc_tpu/ops/fused_randousha.py``, both
+verification modes. The offline preprocessing hot path as a chain of
+kernels with no reshaping pass between stages; the dealer's randomness is
+generated inside the deal kernel, so coefficients never exist in device
+memory:
 
   deal:     per (source party, slot): draw the polynomial's uniform
             coefficients in registers (row 0 = the shared secret, rows 1..t
@@ -13,35 +14,44 @@ the deal kernel, so coefficients never exist in device memory:
   extract:  per (destination party, slot): the n received values are
             polynomial coefficients; re-evaluate at the first n-2t points
             (the hyperinvertible matmul) — these are the extracted random
-            sharings — plus ONE run-random rho-weighted combination of the
-            2t discarded columns, the aggregated check sharing z.
-  check:    open z with the detect-only direct open at its degree; any
-            validation mismatch, or a difference between the two degrees'
-            opened check values, counts as an error.
+            sharings — plus, in aggregate mode, ONE run-random rho-weighted
+            combination of the 2t discarded columns, the aggregated check
+            sharing z; in per-column mode, the 2t discarded columns
+            themselves, into a check tensor.
+  check:    aggregate mode: open z with the detect-only direct open at its
+            degree. Per-column mode: decode every check column from the
+            first k = deg+1 parties and validate the other n-k, counting
+            mismatches per (check column, slot). Any mismatch, or a
+            difference between the two degrees' opened check values, counts
+            as an error.
 
 Fault semantics are detect-only (any error flips ok — the protocol's
 response is an abort vote either way). Soundness of the aggregated check:
 a nonzero deviation in any check column survives the rho-combination only
 if sum_j rho_j*delta_j = 0, probability <= 1/p. rho is derived from the
 run key, so the check is sound only where dealers cannot know the key: the
-single-process simulation (see runtime/offline.py).
-
-The per-column verification (``aggregate=False``: the reference's
-``_kc_kernel`` and the full-band ``_ke_kernel``) is not ported yet and
-raises ``NotImplementedError``.
+single-process simulation (see runtime/offline.py). The per-column check
+opens every discarded column on its own: it is sound whatever the dealers
+know, and it localizes a fault to its check column and slot.
 
 Layouts. The receive tensor is int32 ``[PL, dst, src, sp]`` — the
 extraction reads one destination's n sources as n rows of sp words. (The
 reference's six-axis ``[nblk, njt, PL, n, JT, TBW]`` is a tiling of the same
 values; ``interop.from_reference_receive`` permutes it.) Outputs keep the
 reference's contract: packed share tensors ``[PL, n, n_outp, sp]`` with the
-extracted sharings in rows ``[:n_out]``, the check sharing in row n_out and
-zero sharings above, or flat ``[PL, n, n_out*k]`` column-major stripes
-(share of output-column c at slot s at index c*k + s).
+extracted sharings in rows ``[:n_out]`` and, in aggregate mode, the check
+sharing in row n_out and zero sharings above (in per-column mode rows
+n_out .. n_outp-1 hold the first check columns), or flat
+``[PL, n, n_out*k]`` column-major stripes (share of output-column c at slot
+s at index c*k + s). The per-column check tensor is int32
+``[PL, n, ncheckp, sp]``, zero above column ncheck
+(``interop.from_reference_check`` permutes the reference's
+``[nblk, njt, PL, JT, ncheckp, TBW]``).
 
-On CUDA tensors deal and extract are the hand-written kernels
-``csrc/randousha_deal.cu`` and ``csrc/randousha_extract.cu``;
-``_randousha_deal_plain`` and ``_randousha_extract_plain`` are their plain
+On CUDA tensors deal, extract (both modes) and check are the hand-written
+kernels ``csrc/randousha_deal.cu``, ``csrc/randousha_extract.cu`` and
+``csrc/open_fused.cu::randousha_check_kernel``; ``_randousha_deal_plain``,
+``_randousha_extract_plain`` and ``_randousha_check_plain`` are their plain
 PyTorch versions, used on the CPU and as the yardstick the kernels are held
 against bit for bit.
 """
@@ -58,9 +68,9 @@ from .field_kernels import _key_ints, _threefry_redc384
 from .fused_open import (KMAX, NBAL, PL, _BAL_ROUNDS, _bal_bias,
                          _bal_fold_init, _band_dot_fold, _encode_band_np,
                          _fold_consts, _folded_band_host, _kernel_band,
-                         _kernel_band_index, _launch_stream, _pack16,
-                         _pad_band, _planes_of, _planes_of_packed, _round8,
-                         _smem_plan)
+                         _kernel_band_index, _launch_stream, _open_bands,
+                         _pack16, _pad_band, _planes_of, _planes_of_packed,
+                         _r1_lanes_plain, _round8, _smem_plan)
 from .limbs import P, W, ints_to_limbs
 
 JT = 8                  # party-count granule of the reference's layouts
@@ -74,7 +84,19 @@ _RHO_TAG = 0x20000      # counter domain of the check-aggregation vector
 
 # times each CUDA kernel was launched (counted there and nowhere else)
 launches_deal = 0
-launches_extract = 0
+launches_extract = 0        # aggregate mode
+launches_extract_pc = 0     # per-column mode
+launches_check = 0
+# times a plain version of deal, extract or check ran on a CUDA tensor: the
+# card's paths must keep this at 0 (only a comparison against the kernels
+# may move it)
+plain_calls_on_cuda = 0
+
+
+def _count_plain(x):
+    global plain_calls_on_cuda
+    if x.is_cuda:
+        plain_calls_on_cuda += 1
 
 
 def fused_fits(n: int, t: int) -> bool:
@@ -150,6 +172,7 @@ def _randousha_deal_plain(key_data, n: int, t: int, degree: int, sp: int,
     rows = _deal_rows(t, degree)
     kk = len(rows)
     band, _, n1 = _encode_band_device(points, kk, torch.device(device))
+    _count_plain(band)
     src = torch.arange(n, dtype=torch.int64, device=device)[:, None]
     slot = torch.arange(slot0, slot0 + nslot, dtype=torch.int64,
                         device=device)[None, :]
@@ -219,31 +242,41 @@ def randousha_deal(key_data, n: int, t: int, degree: int, sp: int,
 # Extract
 # ---------------------------------------------------------------------------
 
-def _randousha_extract_plain(cols, band, n_out: int, n_outp: int):
+def _randousha_extract_plain(cols, band, n_out: int, n_outp: int,
+                             ncheckp: int | None = None):
     """Plain PyTorch version of the extraction. cols int32
-    [PL, dst, src, sp], band int8 [NBAL*ncp, >= NBAL*n] (reference layout,
-    the rho-folded band) -> (keep [PL, n, n_outp, sp], z [PL, n, sp]). One
-    destination party at a time, so the dot's intermediate stays small."""
+    [PL, dst, src, sp]; band int8 [NBAL*ncp, >= NBAL*n] (reference layout).
+
+    ncheckp None (aggregate mode): the rho-folded band -> (keep
+    [PL, n, n_outp, sp], z [PL, n, sp] = column n_out). ncheckp given
+    (per-column mode): the full n-point band (ncp >= n) -> (keep, chk
+    [PL, n, ncheckp, sp]): keep holds band columns [:n_outp], chk columns
+    n_out..n-1 and zeros above. One destination party at a time, so the
+    dot's intermediate stays small."""
+    _count_plain(cols)
     n = cols.shape[2]
     ncp = band.shape[0] // NBAL
     init, bias = _bal_fold_init(n), _bal_bias(n)
-    keep, z = [], []
+    keep, rest = [], []
     for dst in range(cols.shape[1]):
         planes = _planes_of_packed(cols[:, dst])          # [NBAL*n, sp]
         out = _pack16(_band_dot_fold(band, planes, ncp, init, bias))
         keep.append(out[:, :n_outp])
-        z.append(out[:, n_out])
-    return torch.stack(keep, 1).contiguous(), torch.stack(z, 1).contiguous()
+        if ncheckp is None:
+            rest.append(out[:, n_out])
+        else:
+            rest.append(torch.cat([out[:, n_out:n], out.new_zeros(
+                (PL, ncheckp - (n - n_out), out.shape[-1]))], dim=1))
+    return torch.stack(keep, 1).contiguous(), torch.stack(rest, 1).contiguous()
 
 
 @functools.lru_cache(maxsize=None)
 def _extract_launcher(n: int, n_out: int, n_outp: int, ncp: int, kcn: int,
-                      device: torch.device):
+                      ncheckp: int | None, device: torch.device):
     """Everything an extract launch needs but its operands: kernel entry,
     the gather index that re-lays a reference-layout band for the kernel
     (the device twin of _kernel_band), fold constants, launch shape."""
     from .._build import lib
-    fn = lib().hb_randousha_extract
     relay = torch.from_numpy(_kernel_band_index(ncp, n, kcn)).to(device)
     tl, wg = _smem_plan(n)
     init, bias = _fold_consts(n)
@@ -253,51 +286,135 @@ def _extract_launcher(n: int, n_out: int, n_outp: int, ncp: int, kcn: int,
         frag = band.reshape(-1)[relay]                # int8, fragment order
         keep = torch.empty((PL, n, n_outp, sp), dtype=torch.int32,
                            device=device)
-        z = torch.empty((PL, n, sp), dtype=torch.int32, device=device)
-        rc = fn(cols.data_ptr(), frag.data_ptr(), keep.data_ptr(),
-                z.data_ptr(), n, sp, n_out, n_outp, tl, wg, init, bias,
+        if ncheckp is None:
+            out2 = torch.empty((PL, n, sp), dtype=torch.int32, device=device)
+            rc = lib().hb_randousha_extract(
+                cols.data_ptr(), frag.data_ptr(), keep.data_ptr(),
+                out2.data_ptr(), n, sp, n_out, n_outp, tl, wg, init, bias,
                 _launch_stream(cols))
-        return rc, keep, z
+        else:
+            out2 = torch.empty((PL, n, ncheckp, sp), dtype=torch.int32,
+                               device=device)
+            rc = lib().hb_randousha_extract_pc(
+                cols.data_ptr(), frag.data_ptr(), keep.data_ptr(),
+                out2.data_ptr(), n, sp, n_out, n_outp, ncheckp, tl, wg, init,
+                bias, _launch_stream(cols))
+        return rc, keep, out2
 
     return launch
 
 
-def _randousha_extract_cuda(cols, band, n_out: int, n_outp: int):
-    """Launch csrc/randousha_extract.cu on a receive tensor and a
-    reference-layout band, both on the card."""
-    global launches_extract
+def _randousha_extract_cuda(cols, band, n_out: int, n_outp: int,
+                            ncheckp: int | None):
+    """Launch csrc/randousha_extract.cu (randousha_extract_kernel, or
+    randousha_extract_pc_kernel when ncheckp is given) on a receive tensor
+    and a reference-layout band, both on the card."""
+    global launches_extract, launches_extract_pc
     n = cols.shape[2]
     ncp = band.shape[0] // NBAL
-    rc, keep, z = _extract_launcher(n, n_out, n_outp, ncp, band.shape[1],
-                                    cols.device)(cols, band)
-    launches_extract += 1
+    rc, keep, out2 = _extract_launcher(n, n_out, n_outp, ncp, band.shape[1],
+                                       ncheckp, cols.device)(cols, band)
+    if ncheckp is None:
+        launches_extract += 1
+    else:
+        launches_extract_pc += 1
     if rc != 0:
         raise RuntimeError(
             f"randousha_extract kernel launch failed: CUDA error {rc}")
-    return keep, z
+    return keep, out2
 
 
-def randousha_extract(cols, band, n_out: int, n_outp: int):
-    """Extract from a receive tensor int32 [PL, n, n, sp] with the
-    rho-folded band int8 [NBAL*ncp, kcn] (ncp > n_out columns) ->
-    (keep [PL, n, n_outp, sp], z [PL, n, sp])."""
+def randousha_extract(cols, band, n_out: int, n_outp: int,
+                      ncheckp: int | None = None):
+    """Extract from a receive tensor int32 [PL, n, n, sp].
+
+    Aggregate mode (ncheckp None): band is the rho-folded band int8
+    [NBAL*ncp, kcn] (ncp > n_out columns) -> (keep [PL, n, n_outp, sp],
+    z [PL, n, sp]). Per-column mode: band is the full n-point encode band
+    (ncp >= n columns) -> (keep [PL, n, n_outp, sp], chk int32
+    [PL, n, ncheckp, sp]): keep rows n_out..n_outp-1 are the first check
+    columns, check columns from ncheck = n - n_out on are zero."""
     if cols.dtype != torch.int32 or cols.dim() != 4 or cols.shape[0] != PL \
             or cols.shape[1] != cols.shape[2] or not cols.is_contiguous():
         raise ValueError(f"cols must be contiguous int32 [{PL}, n, n, sp], "
                          f"got {cols.dtype} {tuple(cols.shape)}")
     n = cols.shape[2]
+    ncp_min = n_out + 1 if ncheckp is None else n
     if band.dtype != torch.int8 or band.dim() != 2 \
             or band.shape[0] % NBAL != 0 or band.shape[1] < NBAL * n \
-            or band.shape[0] // NBAL <= n_out or band.device != cols.device \
+            or band.shape[0] // NBAL < ncp_min or band.device != cols.device \
             or not band.is_contiguous():
         raise ValueError(f"band must be contiguous int8 [NBAL*ncp, >= "
-                         f"{NBAL * n}] with ncp > {n_out} on {cols.device}, "
-                         f"got {band.dtype} {tuple(band.shape)}")
+                         f"{NBAL * n}] with ncp >= {ncp_min} on "
+                         f"{cols.device}, got {band.dtype} "
+                         f"{tuple(band.shape)}")
     if n > KMAX:
         raise ValueError(f"extraction needs n <= {KMAX}, got {n}")
+    if not 0 < n_out <= n_outp <= n:
+        raise ValueError(f"need 0 < n_out <= n_outp <= n, got {n_out}, "
+                         f"{n_outp}, {n}")
+    if ncheckp is not None and ncheckp < n - n_out:
+        raise ValueError(f"ncheckp {ncheckp} < ncheck {n - n_out}")
     if cols.is_cuda:
-        return _randousha_extract_cuda(cols, band, n_out, n_outp)
-    return _randousha_extract_plain(cols, band, n_out, n_outp)
+        return _randousha_extract_cuda(cols, band, n_out, n_outp, ncheckp)
+    return _randousha_extract_plain(cols, band, n_out, n_outp, ncheckp)
+
+
+# ---------------------------------------------------------------------------
+# Per-column check
+# ---------------------------------------------------------------------------
+
+def _randousha_check_plain(chk, k: int, points: tuple):
+    """Plain PyTorch version of the per-column check: chk int32
+    [PL, n, ncheckp, sp] -> (vals [PL, ncheckp, sp], errs int32
+    [ncheckp, sp]). Lane (c, s) is K2's decode of the n parties' shares of
+    check column c at slot s (ops/fused_open.py::_r1_lanes_plain)."""
+    _count_plain(chk)
+    _, n, ncheckp, sp = chk.shape
+    vals, bad = _r1_lanes_plain(chk.reshape(PL, n, ncheckp * sp), points, k)
+    return vals.reshape(PL, ncheckp, sp), bad.reshape(ncheckp, sp)
+
+
+def _randousha_check_cuda(chk, k: int, points: tuple):
+    """Launch csrc/open_fused.cu::randousha_check_kernel on the card."""
+    global launches_check
+    from .._build import lib
+    _, n, ncheckp, sp = chk.shape
+    kern = _open_bands(points, k, chk.device)[0][1][2]
+    tl, wg = _smem_plan(k)
+    init, bias = _fold_consts(k)
+    vals = torch.empty((PL, ncheckp, sp), dtype=torch.int32,
+                       device=chk.device)
+    errs = torch.zeros((ncheckp, sp), dtype=torch.int32, device=chk.device)
+    rc = lib().hb_randousha_check(chk.data_ptr(), kern.data_ptr(),
+                                  vals.data_ptr(), errs.data_ptr(), n, k, sp,
+                                  ncheckp, tl, wg, init, bias,
+                                  _launch_stream(chk))
+    launches_check += 1
+    if rc != 0:
+        raise RuntimeError(
+            f"randousha_check kernel launch failed: CUDA error {rc}")
+    return vals, errs
+
+
+def randousha_check(chk, k: int, points: tuple):
+    """The per-column check of one degree: chk int32 [PL, n, ncheckp, sp],
+    every party's shares of every check column -> (vals int32
+    [PL, ncheckp, sp], each lane's value at 0 decoded from the first k
+    parties; errs int32 [ncheckp, sp], how many of the other n-k parties'
+    shares differ from the decoded polynomial in any word). k = deg+1."""
+    if chk.dtype != torch.int32 or chk.dim() != 4 or chk.shape[0] != PL \
+            or not chk.is_contiguous():
+        raise ValueError(f"chk must be contiguous int32 [{PL}, n, ncheckp, "
+                         f"sp], got {chk.dtype} {tuple(chk.shape)}")
+    n = chk.shape[1]
+    if len(points) != n or not 0 < k < n or k > KMAX:
+        raise ValueError(f"need {n} points and 0 < k < n, k <= {KMAX}; got "
+                         f"{len(points)} points, k={k}")
+    points = tuple(int(x) % P for x in points)
+    if chk.is_cuda:
+        return _randousha_check_cuda(chk, k, points)
+    return _randousha_check_plain(chk, k, points)
 
 
 # ---------------------------------------------------------------------------
@@ -317,8 +434,16 @@ def _randousha_calls(n: int, t: int, sp: int, points: tuple,
     check per degree (soundness 1 - 1/p), and rho is FOLDED INTO THE
     EXTRACTION BAND: the extraction computes n_out keep columns plus one
     aggregated check column instead of all n, and the 2t-column check
-    tensor never exists. aggregate=False, the per-column verification, is
-    not ported yet.
+    tensor never exists.
+
+    aggregate=False: the per-column verification, the protocol-faithful
+    check. The extraction re-encodes at all n points (keep rows n_out ..
+    n_outp-1 are then the first check columns) and writes the 2t discarded
+    columns to a check tensor [PL, n, ncheckp, sp]; every check column is
+    decoded from the first deg+1 parties and validated against the other
+    n-deg-1, at both degrees. nerr is the validation mismatches over the
+    real check columns plus the (column, slot) pairs whose opened values
+    differ between the degrees.
 
     single=True: RanSha — degree-t sharings only (no 2t dealing, no
     extraction at 2t, no cross-degree equality; the degree-t check still
@@ -328,15 +453,14 @@ def _randousha_calls(n: int, t: int, sp: int, points: tuple,
     f(cols, degree) between deal and extract: the simulation's stand-in for
     a Byzantine dealer or a fault on the wire, for tests of the check.
 
-    run.parts = (kd_t, kd_2, ke): the stages (kd_*(key_data) -> receive
-    tensor, ke(cols, band) -> (keep, z)); run.meta = (n_out, n_outp, ncheck,
-    ncheckp); run.folded_band(key_data) -> the run's extraction band."""
+    run.parts = (kd_t, kd_2, ke) in aggregate mode: the stages
+    (kd_*(key_data) -> receive tensor, ke(cols, band) -> (keep, z)); in
+    per-column mode (kd_t, kd_2, ke, kc_t, kc_2) with ke(cols) -> (keep,
+    chk) on the constant full band and kc_*(chk) -> (vals, errs), the check
+    at each degree. run.meta = (n_out, n_outp, ncheck, ncheckp);
+    run.folded_band(key_data) -> the run's extraction band (None in
+    per-column mode)."""
     device = torch.device(device)
-    if not aggregate:
-        raise NotImplementedError(
-            "aggregate=False needs the per-column check kernel and the "
-            "full-band extraction (the reference's _kc_kernel and "
-            "_ke_kernel with agg=False), which are not ported yet")
     assert fused_fits(n, t) and sp % TBW == 0
     n_out = n - 2 * t
     ncheck = 2 * t
@@ -350,6 +474,10 @@ def _randousha_calls(n: int, t: int, sp: int, points: tuple,
 
     def kd_2(key_data):
         return randousha_deal(key_data, n, t, 2 * t, sp, points, device)
+
+    if not aggregate:
+        return _per_column_run(n, t, points, single, device, kd_t, kd_2,
+                               (n_out, n_outp, ncheck, ncheckp))
 
     def ke(cols, band):
         return randousha_extract(cols, band[0], n_out, n_outp)
@@ -433,6 +561,51 @@ def _randousha_calls(n: int, t: int, sp: int, points: tuple,
     run.parts = (kd_t, kd_2, ke)
     run.meta = (n_out, n_outp, ncheck, ncheckp)
     run.folded_band = folded_band
+    return run
+
+
+def _per_column_run(n, t, points, single, device, kd_t, kd_2, meta):
+    """run(key_data, tamper=None) of _randousha_calls(aggregate=False): the
+    reference's per-column pipeline, deal -> full-band extract -> check at
+    each degree. The receive and check tensors (537 MB and 403 MB per
+    degree at n=64, sp=4096) are freed as soon as they are read."""
+    n_out, n_outp, ncheck, ncheckp = meta
+    band = _encode_band_device(points, n, device)[0]     # full n-point band
+
+    def ke(cols):
+        return randousha_extract(cols, band, n_out, n_outp, ncheckp)
+
+    def kc_t(chk):
+        return randousha_check(chk, t + 1, points)
+
+    def kc_2(chk):
+        return randousha_check(chk, 2 * t + 1, points)
+
+    def run(key_data, tamper=None):
+        cols_t = kd_t(key_data)
+        if tamper is not None:
+            cols_t = tamper(cols_t, t)
+        keep_t, chk_t = ke(cols_t)
+        del cols_t
+        vt, et = kc_t(chk_t)
+        del chk_t
+        if single:
+            return keep_t, et[:ncheck].sum()
+        cols_2t = kd_2(key_data)
+        if tamper is not None:
+            cols_2t = tamper(cols_2t, 2 * t)
+        keep_2t, chk_2t = ke(cols_2t)
+        del cols_2t
+        v2, e2 = kc_2(chk_2t)
+        del chk_2t
+        # cross-degree equality on the real check columns (packed words)
+        neq = (vt[:, :ncheck] != v2[:, :ncheck]).any(dim=0).sum()
+        nerr = et[:ncheck].sum() + e2[:ncheck].sum() + neq
+        return keep_t, keep_2t, nerr
+
+    run.parts = (kd_t, kd_2, ke, kc_t, kc_2)
+    run.meta = meta
+    run.folded_band = None
     return run
 
 

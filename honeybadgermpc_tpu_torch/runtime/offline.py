@@ -41,10 +41,9 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ..ops import montgomery as mont
 from ..ops.field_kernels import (_key_ints, mul_add_packed,
                                  mul_add_packed4_flat, split_key,
-                                 sub_bcast_packed4)
+                                 sub_bcast_packed, sub_bcast_packed4)
 from ..ops.fparray import FpArray
 from ..ops.fused_open import (KMAX, PL, pack_limbs, sim_open_fused_packed,
                               unpack_limbs)
@@ -293,8 +292,9 @@ def fused_generate_triples(backend, n: int, t: int, k: int, key=None,
     errors). Nothing here reads a device value on the host.
 
     packed=False returns (a, b, ab FpArray [n, k*(n-2t)], ok): z comes
-    from the flat packed kernel ``mul_add_packed`` and ab from a
-    subtraction that broadcasts the one opened copy over the parties.
+    from the flat packed kernel ``mul_add_packed`` and ab from the flat
+    ``sub_bcast_packed``, which broadcasts the one opened copy over the
+    parties (the reference subtracts on unpacked limbs: the same words).
 
     key: key data of the run, split with field_kernels.split_key; or
     subkeys=(ka, kb, kr): the three dealings' key data given directly."""
@@ -337,7 +337,7 @@ def fused_generate_triples(backend, n: int, t: int, k: int, key=None,
     ok = oka & okb & okr & (nerr.sum() == 0)
     # every party's opened value is the same: the subtraction broadcasts
     # the one copy over the parties' r_t
-    ab = mont.sub_mod(unpack_limbs(opened[:, None, :cnt]), unpack_limbs(prt))
+    ab = unpack_limbs(sub_bcast_packed(opened[:, :cnt], prt))
     return (FpArray(unpack_limbs(pa)), FpArray(unpack_limbs(pb)),
             FpArray(ab), ok)
 

@@ -134,5 +134,8 @@ def test_fused_fits_and_the_unported_mode():
     assert [fr.fused_fits(n, t) for n, t in ((64, 21), (8, 2), (7, 2))] == \
         [ref_fr.fused_fits(n, t) for n, t in ((64, 21), (8, 2), (7, 2))]
     assert fr._CTR_TAG == ref_fr._CTR_TAG and fr.TBW == ref_fr.TBW
-    with pytest.raises(NotImplementedError, match="_kc_kernel"):
-        fr._randousha_calls(N, T, K, POINTS, aggregate=False, device=CPU)
+    # the per-column mode builds: five stages, no folded band
+    run = fr._randousha_calls(N, T, K, POINTS, aggregate=False, device=CPU)
+    assert len(run.parts) == 5 and run.folded_band is None
+    assert run.meta == fr._randousha_calls(N, T, K, POINTS,
+                                           device=CPU).meta
