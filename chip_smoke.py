@@ -42,7 +42,10 @@ Phases, each printing one JSON line; any failure exits non-zero (18 and
   2 build     compile and load the nineteen kernels
   3 kernels   each kernel against its plain PyTorch version on the card,
               bit for bit, at small, unaligned and main-path shapes, with
-              times and the computed bound
+              times and the computed bound; row 3 (band_matmul, on the wgmma
+              core) at B in {1, 63, 64, 65, 16896, 262144}, k in {1, 3, 22,
+              43, 64}, m in {1, 5, 64, 128} with a Python-int sample each,
+              timed at the open's shape and the eager programs' three
   4 main      deal, pack and open every segment; nerr == 0; opened secrets
               against a Python-int Lagrange oracle; launch counters moved
   5 faults    a flipped word is detected and charged to the right party
@@ -67,7 +70,9 @@ Phases, each printing one JSON line; any failure exits non-zero (18 and
  13 program kernels  rows 10 and 16-18 (mul_add_packed, open_fused K1-K3)
               against their plain versions on the card, bit for bit, at the
               programs' shapes (k = 22 and 43), an unaligned chunk count and
-              a small shape, honest and faulted, a Python-int sample each
+              a small shape, honest and faulted, a Python-int sample each;
+              K1 also at C = 1, 7819 and 7820 (k = 22 and 43), the edges of
+              its lane tiles
  14 programs  each program in both modes once with the launch counts set
               to 0 just before and read just after: ok; r_t and r_2t open
               to equal secrets; ab == a*b for every triple; every bit is 0
@@ -190,6 +195,16 @@ INT32_OPS_PER_S = 67e12 / 2     # 128 lanes x 1 instruction
 RAND_OPS_PER_ELEMENT = 6 * (20 * 3 + 2 + 10) + 5 * (1 + 8 * 2 + 2) + 8 \
     + 16 + 16
 KT = 4096                         # slots of one triple call
+# the eager programs' encodes: band_matmul at B = n x KT with k = t+1, 2t+1
+# and n (randousha with the fallback runs k = 22, 43, 64, 64)
+EAGER_BAND_K = (K, 2 * T + 1, N)
+# row 3's comparisons: every lane-tile size of the wgmma core (64, 128 and
+# 256 lanes), ragged last tiles at each, m = 1 and 5 (a half-used two-column
+# tile), k = 1 to 64, the open's shape and the eager programs'
+BAND_SHAPES = ((1, 1, 1), (63, 3, 5), (64, 22, 64), (65, 43, 128),
+               (63, 64, 1), (65, 1, 5), (64, 64, 128), (16961, 43, 64),
+               (33850, 22, 5), (SEG, K, N),
+               *((N * KT, k, N) for k in EAGER_BAND_K))
 N_OUT = N - 2 * T                 # 22 extracted sharings per slot
 N_OUTP = -(-N_OUT // 8) * 8       # 24 rows of the padded keep tensor
 NCHECKP = -(-2 * T // 8) * 8      # 48 columns of the padded check tensor
@@ -426,12 +441,19 @@ def compare_rand(dev, numel):
 
 
 def compare_band(dev, b, k, m):
+    """band_matmul against its plain version, bit for bit, and a Python-int
+    sample: out = sum_i a_i * mat[i][col] holds in Montgomery form too."""
     a = pack_limbs(fk.rand_limbs((21, k), b * k, dev).reshape(L, b, k))
     mat = _vandermonde_int_rows(tuple(range(1, m + 1)), k)
     got = bm.band_matmul_packed(a, mat)
     want = bm._band_matmul_plain(a, mat)
     sync()
     check(torch.equal(got, want), f"band_matmul != plain at {(b, k, m)}")
+    for bb, col in sorted({(0, 0), (b - 1, m - 1), (b // 2, m // 2)}):
+        ai = packed_ints(a[:, bb], list(range(k)))
+        check(packed_ints(got[:, bb, col], [0])[0]
+              == sum(x * mat[i][col] for i, x in enumerate(ai)) % P,
+              f"band_matmul != Python ints at {(b, k, m)} [{bb}, {col}]")
     return max_abs_err(got, want), a, mat
 
 
@@ -465,10 +487,16 @@ def phase_kernels(dev):
     for numel in (5000, 77, SEG, SEG * T):
         err["rand_limbs"] = max(err["rand_limbs"], compare_rand(dev, numel))
         shapes.append(f"rand_limbs numel={numel}")
-    for b, k, m in ((50, 3, 8), (33, 3, 7), (SEG, K, N)):
-        e, a_main, mat_main = compare_band(dev, b, k, m)
+    band_in = {}
+    for b, k, m in BAND_SHAPES:
+        e, a, mat = compare_band(dev, b, k, m)
         err["band_matmul"] = max(err["band_matmul"], e)
         shapes.append(f"band_matmul B={b} k={k} m={m}")
+        if (b, m) in ((SEG, N), (N * KT, N)):
+            band_in[b, k] = (a, mat)
+        del a, mat
+        torch.cuda.empty_cache()
+    a_main, mat_main = band_in[SEG, K]
     # small, unaligned, main-path, and the degree-2t open (k = 43)
     for n, t, b in ((8, 2, 48), (7, 2, 33), (N, 2 * T, 43 * 392),
                     (N, T, SEG)):
@@ -496,6 +524,16 @@ def phase_kernels(dev):
             time_ms(lambda: fk._rand_limbs_plain((1, 2), SEG * T, dev), 3),
             rand_bound(SEG * T)),
     }
+    # row 3 at the eager programs' encodes (B = n x 4096 slots)
+    for k in EAGER_BAND_K:
+        a, mat = band_in[N * KT, k]
+        times[f"band_matmul_eager_k{k}"] = (
+            kernel_ms(lambda: bm.band_matmul_packed(a, mat), 10,
+                      "band_matmul_kernel"),
+            timed_once(lambda: bm._band_matmul_plain(a, mat)),
+            band_bound(N * KT, k, N))
+    del band_in, a, mat
+    torch.cuda.empty_cache()
     say("kernels_vs_plain", ok=True, tolerance="exact (torch.equal)",
         shapes=shapes, timed_by={k: v[0][1] for k, v in times.items()},
         seconds=round(time.perf_counter() - t0, 3))
@@ -1395,6 +1433,25 @@ def compare_open_fused(dev, n, k, c, key):
     return worst, stage_in
 
 
+def compare_k1(dev, n, k, c, key):
+    """K1 alone against its plain version, bit for bit, and a Python-int
+    sample: the edges of the wgmma core's lane tiles (C = 1, 7819)."""
+    pts = tuple(range(1, n + 1))
+    view = pack_limbs(fk.rand_limbs(key, n * k * c, dev).reshape(
+        L, n, k, c)).contiguous()
+    cols = fo.open_k1(view, pts)
+    want = fo._k1_plain(view, pts)
+    sync()
+    check(torch.equal(cols, want), f"open_fused K1 != plain at {(n, k, c)}")
+    for p, j, cc in sorted({(0, 0, 0), (n - 1, n - 1, c - 1),
+                            (n // 2, 1, c // 2)}):
+        co = packed_ints(view[:, p, :, cc], list(range(k)))
+        check(packed_ints(cols[:, p, j, cc], [0])[0]
+              == sum(x * pow(j + 1, i, P) for i, x in enumerate(co)) % P,
+              f"open_fused K1 != Python ints at {(n, k, c)}")
+    return max_abs_err(cols, want)
+
+
 def compare_mul_add(dev, b):
     x = [pack_limbs(rand_field(dev, (71 + i, b), (b,))) for i in range(3)]
     got = fk.mul_add_packed(*x)
@@ -1438,6 +1495,11 @@ def phase_kernels_programs(dev):
                     kernel_ms(kern, 10, f"open_fused_k{s}_kernel"),
                     timed_once(plain), open_fused_bound(s, N, k, c))
             del view, cols, vals, stage_in
+    for n, k, c in ((N, K, 1), (N, K, C_T - 1), (N, 2 * T + 1, 1),
+                    (N, 2 * T + 1, C_T - 1), (N, 2 * T + 1, C_T)):
+        err["open_fused_k1"] = max(err["open_fused_k1"],
+                                   compare_k1(dev, n, k, c, (79, c)))
+        shapes.append(f"open_fused K1 n={n} k={k} C={c}")
     worst = 0
     for b in (1, 777, N * N_OUT * KT):
         e, operands = compare_mul_add(dev, b)
@@ -2385,6 +2447,15 @@ def kernels_line(times, err, launches, launches_triples, launches_robust,
             row["streamed_shape"] = {"ms": ms3, "plain_ms": plain3,
                                      "bound_ms": bound3, "bound_by": by3,
                                      "shape": shape3}
+        if name in ("band_matmul", "open_fused_k1"):
+            row["core"] = "honeybadgermpc_tpu_torch/csrc/band_gemm.cuh"
+        if name == "band_matmul":
+            row["eager_shapes"] = []
+            for k in EAGER_BAND_K:
+                ms2, plain2, (bound2, by2) = times[f"band_matmul_eager_k{k}"]
+                row["eager_shapes"].append({
+                    "ms": ms2, "plain_ms": plain2, "bound_ms": bound2,
+                    "bound_by": by2, "shape": f"B={N * KT} k={k} m={N}"})
         if name in extra:
             key, shape2 = extra[name]
             ms2, plain2, (bound2, by2) = times[key]

@@ -99,8 +99,8 @@ def _declare(lib):
     init = ctypes.POINTER(ctypes.c_uint32)
     lib.hb_open_direct.argtypes = [vp, vp, vp, vp, i32, i32, i64, i32, i32,
                                    init, i32, vp]
-    lib.hb_band_matmul.argtypes = [vp, vp, vp, i64, i32, i32, i32, i32,
-                                   init, i32, vp]
+    lib.hb_band_matmul.argtypes = [vp, vp, vp, i64, i32, i32, i32, init,
+                                   vp]
     lib.hb_rand_limbs.argtypes = [u32, u32, vp, i64, vp]
     lib.hb_randousha_deal.argtypes = [u32, u32, vp, vp, i64, i32, i32, i32,
                                       i32, i32, init, i32, vp]
@@ -123,9 +123,11 @@ def _declare(lib):
                                             vp]
     lib.hb_randousha_check.argtypes = [vp, vp, vp, vp, i32, i32, i64, i64,
                                        i32, i32, init, i32, vp]
+    lib.hb_open_fused_k1.argtypes = [vp, vp, vp, i32, i32, i64, i32, init,
+                                     vp]
     fused = (lib.hb_open_fused_k1, lib.hb_open_fused_k2,
              lib.hb_open_fused_k3)
-    for fn in fused:
+    for fn in fused[1:]:
         fn.argtypes = [vp, vp, vp, vp, i32, i32, i64, i32, i32, init, i32,
                        vp]
     for fn in (lib.hb_open_direct, lib.hb_band_matmul, lib.hb_rand_limbs,

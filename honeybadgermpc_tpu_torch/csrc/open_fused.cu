@@ -43,21 +43,25 @@
 // ridge; the fold/REDC epilogue (CUDA cores, about 450 instructions per
 // lane and column) comes on top of the dot.
 //
-// Design: the direct open's (csrc/open_direct.cu). A block owns TL lanes
-// and WG column slots; it builds its lanes' balanced digit planes once in
-// shared memory; every warp then walks its slot's columns with no block
-// barrier: band fragments from device memory one k-step ahead,
-// mma.sync.m16n8k32.s8, a per-warp transpose to one lane per thread, the
-// fold/REDC epilogue in registers, then a store or a compare. The four
-// stages differ only in how a lane finds its k operands, what a column
-// does with its result, and where mismatches are charged:
+// K1 runs on band_gemm.cuh's core (wgmma, the band streamed through shared
+// memory, the epilogue straight from the accumulators): its lane map is
+// the one below with the chunk index c contiguous, its result a plain
+// store. K2, K3 and KC keep the direct open's design (csrc/open_direct.cu)
+// on field_core.cuh's mma.sync core: a block owns TL lanes and WG column
+// slots; it builds its lanes' balanced digit planes once in shared memory;
+// every warp then walks its slot's columns with no block barrier: band
+// fragments from device memory one k-step ahead, mma.sync.m16n8k32.s8, a
+// per-warp transpose to one lane per thread, the fold/REDC epilogue in
+// registers, then a store or a compare. The stages differ only in how a
+// lane finds its k operands, what a column does with its result, and
+// where mismatches are charged:
 //
 //   operand i, word w of lane g = src[w*sw + (g / C)*sp + i*si + g % C]
 //
 // Each thread keeps its mismatch count in a register and adds it to the
 // global counter with one atomicAdd at the end, when it is not 0 (honest
 // shares: no atomics). Integer adds: order-free.
-#include "field_core.cuh"
+#include "band_gemm.cuh"
 
 namespace hb {
 
@@ -83,7 +87,7 @@ __device__ __forceinline__ void open_fused_body(
   const int lane = tid - slot * tl;        // lane within the block
   const long long g = static_cast<long long>(blockIdx.x) * tl + lane;
   const bool valid = g < m.nlanes;
-  const long long grp = valid ? g / m.C : 0;  // source (K1), dst (K2)
+  const long long grp = valid ? g / m.C : 0;  // destination (K2)
   const long long c = valid ? g - grp * m.C : 0;
   const size_t base = static_cast<size_t>(grp * m.sp + c);
   const int nv = n - k;
@@ -136,10 +140,7 @@ __device__ __forceinline__ void open_fused_body(
       continue;
     }
     size_t at, plane;
-    if (STAGE == 1) {                      // cols [PL, src, dst, C]
-      at = (static_cast<size_t>(grp) * n + col) * m.C + c;
-      plane = static_cast<size_t>(n) * n * m.C;
-    } else if (STAGE == 2 || STAGE == 4) {  // vals [PL, lanes]: lane g
+    if (STAGE == 2 || STAGE == 4) {        // vals [PL, lanes]: lane g
       at = static_cast<size_t>(g);
       plane = static_cast<size_t>(m.nlanes);
     } else {                               // sec [PL, k, C]
@@ -153,12 +154,14 @@ __device__ __forceinline__ void open_fused_body(
   if (bad) atomicAdd(&errs[STAGE == 2 ? grp : (STAGE == 4 ? g : 0)], bad);
 }
 
-__global__ void open_fused_k1_kernel(const uint32_t* __restrict__ src,
-                                     const int4* __restrict__ band,
-                                     uint32_t* __restrict__ out, int n,
-                                     int k, LaneMap m, int tl, FoldConst fc) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  open_fused_body<1>(smem, src, band, out, nullptr, n, k, n, m, tl, fc);
+template <int MB>
+__global__ void __launch_bounds__(gemm::threads(MB), 1)
+    open_fused_k1_kernel(const uint32_t* __restrict__ src,
+                         const unsigned char* __restrict__ band,
+                         uint32_t* __restrict__ out, gemm::EncodeMap mp,
+                         gemm::WordFold wf) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  gemm::band_gemm_body<MB>(smem, src, band, out, mp, wf);
 }
 
 __global__ void open_fused_k2_kernel(const uint32_t* __restrict__ src,
@@ -207,24 +210,28 @@ FoldConst fold_const(const uint32_t* init, int bias) {
 
 }  // namespace hb
 
-// src, band, out, errs: device pointers (errs unused by K1); C: chunks.
+// src [PL, n, k, C], band: the encode band in band_gemm tiles, out: cols
+// [PL, n_src, n_dst, C]; C: chunks; mb: 64-lane blocks per thread block
+// (ops/band_gemm.py::_gemm_plan); fold: _word_fold_consts(k).
 extern "C" int hb_open_fused_k1(const void* src, const void* band, void* out,
-                                void* errs, int n, int k, long long C,
-                                int tl, int wg, const uint32_t* init,
-                                int bias, void* stream) {
-  (void)errs;
-  const hb::LaneMap m{static_cast<long long>(n) * C, C,
-                      static_cast<long long>(n) * k * C,
-                      static_cast<long long>(k) * C, C};
-  size_t smem = 0;
-  const int rc = hb::prepare(hb::open_fused_k1_kernel, k, tl, wg, &smem);
-  if (rc != 0) return rc;
-  const unsigned grid = static_cast<unsigned>((m.nlanes + tl - 1) / tl);
-  hb::open_fused_k1_kernel<<<grid, tl * wg, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(src), static_cast<const int4*>(band),
-      static_cast<uint32_t*>(out), n, k, m, tl, hb::fold_const(init, bias));
-  return static_cast<int>(cudaGetLastError());
+                                int n, int k, long long C, int mb,
+                                const uint32_t* fold, void* stream) {
+  const long long nl = static_cast<long long>(n);
+  const hb::gemm::EncodeMap mp{nl * C, C, nl * k * C, k * C, 1, C,
+                               nl * nl * C, nl * C, 1, C, k, n};
+  switch (mb) {
+    case 4:
+      return hb::gemm::launch<4>(hb::open_fused_k1_kernel<4>, src, band, out,
+                                 mp, fold, stream);
+    case 2:
+      return hb::gemm::launch<2>(hb::open_fused_k1_kernel<2>, src, band, out,
+                                 mp, fold, stream);
+    case 1:
+      return hb::gemm::launch<1>(hb::open_fused_k1_kernel<1>, src, band, out,
+                                 mp, fold, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int hb_open_fused_k2(const void* src, const void* band, void* out,

@@ -18,14 +18,13 @@ from __future__ import annotations
 
 import functools
 
-import numpy as np
 import torch
 
+from .band_gemm import _fold_array, _gemm_band, _gemm_plan
 from .fused_open import (KMAX, NBAL, PL, _bal_bias, _bal_fold_init,
-                         _band_dot_fold, _fold_consts, _folded_band_host,
-                         _kernel_band, _launch_stream, _pack16, _pad_band,
-                         _planes_of_packed, _round8, _smem_plan, pack_limbs,
-                         unpack_limbs)
+                         _band_dot_fold, _folded_band_host, _launch_stream,
+                         _pack16, _pad_band, _planes_of_packed, _round8,
+                         pack_limbs, unpack_limbs)
 
 launches = 0      # times the CUDA kernel was launched (and nowhere else)
 
@@ -48,15 +47,14 @@ def _band_host(mat_key: tuple):
 @functools.lru_cache(maxsize=None)
 def _band_device(mat_key: tuple, device: torch.device):
     """The band on `device`: reference layout int8 [NBAL*mp, NBAL*k] for
-    the plain version, and for CUDA also the kernel's fragment layout
-    [m, k, 2, 32, 4] int32 (see fused_open._kernel_band)."""
+    the plain version, and for CUDA also the kernel's tile layout
+    [ceil(m/2), k, 2048] int8 (see band_gemm._gemm_band)."""
     band, mp = _band_host(mat_key)
     k, m = len(mat_key), len(mat_key[0])
     ref = torch.from_numpy(band[0]).to(device)
     kern = None
     if device.type == "cuda":
-        kern = torch.from_numpy(np.ascontiguousarray(
-            _kernel_band(band[0], mp, k)[:m])).to(device)
+        kern = torch.from_numpy(_gemm_band(band[0], mp, k, m)).to(device)
     return ref, kern, mp
 
 
@@ -73,27 +71,28 @@ def _band_matmul_plain(packed, mat_key: tuple):
 @functools.lru_cache(maxsize=None)
 def _band_launcher(mat_key: tuple, device: torch.device):
     """Everything a launch needs that does not depend on the operand: the
-    kernel entry, the band on the device, the fold constants and the launch
-    shape. Cached, so a call costs one allocation and one launch."""
+    kernel entry, the band on the device, the fold constants and the SM
+    count. Cached, so a call costs one allocation and one launch."""
     from .._build import lib
     fn = lib().hb_band_matmul
     k, m = len(mat_key), len(mat_key[0])
     _, band, _ = _band_device(mat_key, device)
-    tl, wg = _smem_plan(k)
-    init, bias = _fold_consts(k)
+    fold = _fold_array(_bal_fold_init(k), _bal_bias(k))
+    nsm = torch.cuda.get_device_properties(device).multi_processor_count
 
     def launch(packed):
         B = packed.shape[1]
-        out = torch.empty((PL, B, m), dtype=torch.int32, device=device)
+        out = torch.empty((PL, m, B), dtype=torch.int32, device=device)
         rc = fn(packed.data_ptr(), band.data_ptr(), out.data_ptr(), B, k, m,
-                tl, wg, init, bias, _launch_stream(packed))
-        return rc, out
+                _gemm_plan(k, B, nsm), fold, _launch_stream(packed))
+        return rc, out.transpose(1, 2)
 
     return launch
 
 
 def _band_matmul_cuda(packed, mat_key: tuple):
-    """Launch csrc/band_matmul.cu: packed int32 [PL, B, k] -> [PL, B, m]."""
+    """Launch csrc/band_matmul.cu: packed int32 [PL, B, k] -> [PL, B, m],
+    the transposed view of the kernel's lane-contiguous [PL, m, B]."""
     global launches
     rc, out = _band_launcher(mat_key, packed.device)(packed)
     launches += 1
@@ -105,7 +104,8 @@ def _band_matmul_cuda(packed, mat_key: tuple):
 
 def band_matmul_packed(packed, mat_key: tuple):
     """packed int32 [PL, B, k] x plain-int mat[k][m] -> packed [PL, B, m]:
-    the kernel on a CUDA tensor, the plain version on a CPU tensor."""
+    the kernel on a CUDA tensor (a view with the lanes contiguous), the
+    plain version on a CPU tensor (contiguous)."""
     k, m = len(mat_key), len(mat_key[0])
     if packed.dtype != torch.int32 or packed.dim() != 3 \
             or packed.shape[0] != PL or packed.shape[2] != k:

@@ -37,6 +37,7 @@ import functools
 import numpy as np
 import torch
 
+from .band_gemm import _fold_array, _gemm_band, _gemm_plan
 from .limbs import L, MASK, N0, P, P_LIMBS, W
 
 TB = 128            # chunk tile of the reference's layouts (kept for parity)
@@ -451,18 +452,21 @@ _PLAIN_LANES = 1 << 15     # lanes per step of the plain versions
 def _open_bands(points: tuple, k: int, device: torch.device):
     """The three bands on `device`: ((reference-layout band [NBAL*ncp,
     kcols] int8, ncp, kernel-layout band or None), ...) for K1, K2, K3,
-    plus the fold constants. The kernel layout (``_kernel_band``) exists
-    for CUDA devices only, cut to the columns each kernel walks."""
+    plus the fold constants. The kernel layouts exist for CUDA devices
+    only, cut to the columns each kernel walks: K1's in band_gemm's tiles
+    (``_gemm_band``), K2's and K3's in mma.sync fragments
+    (``_kernel_band``)."""
     n = len(points)
     enc, r1, r2, _, _ = _bands_np(points, k)
     ncols = (n, n - k + 1, n)
     out = []
-    for (band, ncp), ncol in zip((enc, r1, r2), ncols):
+    for stage, ((band, ncp), ncol) in enumerate(zip((enc, r1, r2), ncols)):
         ref = torch.from_numpy(np.ascontiguousarray(band[0])).to(device)
         kern = None
         if device.type == "cuda":
-            kern = torch.from_numpy(np.ascontiguousarray(
-                _kernel_band(band[0], ncp, k)[:ncol])).to(device)
+            kern = (_gemm_band(band[0], ncp, k, ncol) if stage == 0 else
+                    np.ascontiguousarray(_kernel_band(band[0], ncp, k)[:ncol]))
+            kern = torch.from_numpy(kern).to(device)
         out.append((ref, ncp, kern))
     return tuple(out), _bal_fold_init(k), _bal_bias(k)
 
@@ -537,11 +541,31 @@ def _k3_plain(vals, points: tuple, k: int):
     return sec, bad.to(torch.int32)
 
 
+def _open_k1_cuda(view, points: tuple):
+    """Launch K1 of csrc/open_fused.cu (on csrc/band_gemm.cuh) on view
+    (CUDA) -> cols int32 [PL, n_src, n_dst, C]."""
+    global launches_k1
+    from .._build import lib
+    _, n, k, C = view.shape
+    kern = _open_bands(points, k, view.device)[0][0][2]
+    nsm = torch.cuda.get_device_properties(view.device).multi_processor_count
+    out = torch.empty((PL, n, n, C), dtype=torch.int32, device=view.device)
+    rc = lib().hb_open_fused_k1(
+        view.data_ptr(), kern.data_ptr(), out.data_ptr(), n, k, C,
+        _gemm_plan(k, n * C, nsm),
+        _fold_array(_bal_fold_init(k), _bal_bias(k)), _launch_stream(view))
+    launches_k1 += 1
+    if rc != 0:
+        raise RuntimeError(
+            f"open_fused K1 kernel launch failed: CUDA error {rc}")
+    return out
+
+
 def _open_fused_cuda(stage: int, src, points: tuple, k: int, out_shape,
                      errs_len: int):
-    """Launch stage `stage` (1, 2, 3) of csrc/open_fused.cu on src (CUDA)
-    -> (out int32 `out_shape`, errs int32 [errs_len] or None)."""
-    global launches_k1, launches_k2, launches_k3
+    """Launch stage `stage` (2, 3) of csrc/open_fused.cu on src (CUDA)
+    -> (out int32 `out_shape`, errs int32 [errs_len])."""
+    global launches_k2, launches_k3
     from .._build import lib
     n = len(points)
     kern = _open_bands(points, k, src.device)[0][stage - 1][2]
@@ -549,16 +573,11 @@ def _open_fused_cuda(stage: int, src, points: tuple, k: int, out_shape,
     init, bias = _fold_consts(k)
     C = src.shape[-1]
     out = torch.empty(out_shape, dtype=torch.int32, device=src.device)
-    errs = None if errs_len == 0 else torch.zeros(
-        errs_len, dtype=torch.int32, device=src.device)
-    fn = (lib().hb_open_fused_k1, lib().hb_open_fused_k2,
-          lib().hb_open_fused_k3)[stage - 1]
+    errs = torch.zeros(errs_len, dtype=torch.int32, device=src.device)
+    fn = lib().hb_open_fused_k2 if stage == 2 else lib().hb_open_fused_k3
     rc = fn(src.data_ptr(), kern.data_ptr(), out.data_ptr(),
-            0 if errs is None else errs.data_ptr(), n, k, C, tl, wg, init,
-            bias, _launch_stream(src))
-    if stage == 1:
-        launches_k1 += 1
-    elif stage == 2:
+            errs.data_ptr(), n, k, C, tl, wg, init, bias, _launch_stream(src))
+    if stage == 2:
         launches_k2 += 1
     else:
         launches_k3 += 1
@@ -581,9 +600,8 @@ def open_k1(view, points: tuple):
     coefficients view[:, p, :, c]) -> cols int32 [PL, n_src, n_dst, C].
     csrc/open_fused.cu on a CUDA tensor, the plain version on a CPU one."""
     _check_stage_input(view, "view", 4)
-    _, n, k, C = view.shape
     if view.is_cuda:
-        return _open_fused_cuda(1, view, points, k, (PL, n, n, C), 0)[0]
+        return _open_k1_cuda(view, points)
     return _k1_plain(view, points)
 
 

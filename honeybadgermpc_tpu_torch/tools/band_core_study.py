@@ -1,0 +1,260 @@
+"""Where the wgmma band core's time goes (rows 3 and 16 of PERF.md).
+
+    python3 honeybadgermpc_tpu_torch/tools/band_core_study.py [--parent DIR]
+
+Needs one CUDA card and nvcc. Builds knock-out variants of
+``csrc/band_gemm.cuh`` (patched copies under the package's build
+directory: the sources in the checkout stay as they are) with
+``band_matmul.cu`` and ``open_fused.cu``, and times each at the main-path
+shapes of band_matmul and K1 with CUDA events, on the launch plan the
+wrappers choose. Variants:
+
+  final           the sources as they are
+  no_epilogue     the dot, the band stream and the planes; no fold, no store
+  no_stores       everything but the stores
+  no_dot          everything but the wgmma (the accumulators stay 0)
+  no_planes       everything but the plane build
+  stream_only     the band stream alone
+  two_consumers   2 consumer warpgroups whatever the lane tile
+  one_step_slots  one k-step per bulk copy (8 slots of 2 KB per ring)
+  rows_out        band_matmul writing [PL, B, m] instead of [PL, m, B]
+
+With ``--parent DIR`` (a checkout of another commit of the port, e.g. its
+parent unpacked with ``git archive``) the script also times that tree's
+band_matmul and K1 through their wrappers, before and after the variants,
+in separate processes on the same card. Prints one JSON line per
+measurement; the card's name and power limit come first.
+"""
+
+import argparse
+import ctypes
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(os.path.dirname(HERE))
+
+BAND_SHAPES = ((16896, 22, 64), (262144, 22, 64), (262144, 43, 64),
+               (262144, 64, 64))
+K1_SHAPES = ((64, 22, 7820), (64, 43, 4001))
+
+
+def _patches():
+    wgmma = ("wgmma_s8(acc[mb], da, db, kk > 0);", "(void)da; (void)db;")
+    planes = ("build_planes<MB>(planes, src, mp, lane0);", "")
+    store = ("        for (int w = 0; w < PL; ++w) o[w * mp.ow] = words[w];",
+             "        if ((words[0] ^ words[7]) == 0x9e3779b9u) "
+             "o[0] = words[3];")
+    return {
+        "final": [],
+        "no_epilogue": ["NOEPI"],
+        "no_stores": [store],
+        "no_dot": [wgmma],
+        "no_planes": [planes],
+        "stream_only": ["NOEPI", wgmma, planes],
+        "two_consumers": [("return mb == 1 ? 4 : (mb == 2 ? 3 : 2);",
+                           "return 2;")],
+        "one_step_slots": [("constexpr int KS = 4;", "constexpr int KS = 1;"),
+                           ("constexpr int SLOTS = 2;",
+                            "constexpr int SLOTS = 8;")],
+        "rows_out": [],
+    }
+
+
+def _source(name, patches, base):
+    src = base
+    if "NOEPI" in patches:          # cut from the fold to the end of the body
+        a = base.index("    const int col = ct * NT + cl;")
+        b = base.index("// Launch `kern`")
+        src = (base[:a] + "    if (acc[0][0] == 0x7fffffff && "
+               "acc[MB - 1][31] == 3) out[0] = 1;\n  }\n}\n\n" + base[b:])
+    for p in patches:
+        if p != "NOEPI":
+            if p[0] not in src:
+                raise SystemExit(f"variant {name}: patch anchor missing")
+            src = src.replace(p[0], p[1])
+    return src
+
+
+def build_variants(work):
+    csrc = os.path.join(ROOT, "honeybadgermpc_tpu_torch", "csrc")
+    base = open(os.path.join(csrc, "band_gemm.cuh")).read()
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    procs = {}
+    for name, patches in _patches().items():
+        d = os.path.join(work, name)
+        os.makedirs(d, exist_ok=True)
+        with open(os.path.join(d, "band_gemm.cuh"), "w") as f:
+            f.write(_source(name, patches, base))
+        for fn in ("field_core.cuh", "band_matmul.cu", "open_fused.cu"):
+            shutil.copy(os.path.join(csrc, fn), d)
+        if name == "rows_out":
+            fn = os.path.join(d, "band_matmul.cu")
+            s = open(fn).read()
+            old = "mp{B, B, bk, 0, k, 1, bm, 0, 1, B, k, m};"
+            if old not in s:
+                raise SystemExit("variant rows_out: patch anchor missing")
+            with open(fn, "w") as f:
+                f.write(s.replace(old, "mp{B, B, bk, 0, k, 1, bm, 0, m, 1, "
+                                       "k, m};"))
+        so = os.path.join(d, "lib.so")
+        procs[name] = (so, subprocess.Popen(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+             "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", so,
+             os.path.join(d, "band_matmul.cu"),
+             os.path.join(d, "open_fused.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    for name, (so, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"variant {name} does not build:\n{out}")
+        lib = ctypes.CDLL(so)
+        lib.hb_band_matmul.argtypes = [vp, vp, vp, i64, i32, i32, i32, u32p,
+                                       vp]
+        lib.hb_open_fused_k1.argtypes = [vp, vp, vp, i32, i32, i64, i32,
+                                         u32p, vp]
+        lib.hb_band_matmul.restype = lib.hb_open_fused_k1.restype = i32
+        libs[name] = lib
+    return libs
+
+
+def ev_ms(fn, reps=20):
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def say(**rec):
+    print(json.dumps(rec), flush=True)
+
+
+def time_variants(work):
+    import torch
+    from honeybadgermpc_tpu_torch.ops import band_matmul as bm
+    from honeybadgermpc_tpu_torch.ops import field_kernels as fk
+    from honeybadgermpc_tpu_torch.ops import fused_open as fo
+    from honeybadgermpc_tpu_torch.ops.band_gemm import _fold_array, _gemm_plan
+    from honeybadgermpc_tpu_torch.ops.fpmatmul import _vandermonde_int_rows
+    dev = torch.device("cuda")
+    nsm = torch.cuda.get_device_properties(dev).multi_processor_count
+    libs = build_variants(work)
+    stream = torch.cuda.current_stream().cuda_stream
+    for b, k, m in BAND_SHAPES:
+        a = fo.pack_limbs(fk.rand_limbs((21, k), b * k, dev).reshape(
+            16, b, k))
+        mat = _vandermonde_int_rows(tuple(range(1, m + 1)), k)
+        _, band, _ = bm._band_device(mat, dev)
+        fold = _fold_array(fo._bal_fold_init(k), fo._bal_bias(k))
+        mb = _gemm_plan(k, b, nsm)
+        out = torch.empty((8, b, m), dtype=torch.int32, device=dev)
+        for name, lib in libs.items():
+            def run():
+                return lib.hb_band_matmul(a.data_ptr(), band.data_ptr(),
+                                          out.data_ptr(), b, k, m, mb, fold,
+                                          stream)
+            if run() != 0:
+                raise SystemExit(f"band_matmul {name} launch failed")
+            say(kernel="band_matmul", variant=name, B=b, k=k, m=m,
+                lanes_per_block=64 * mb, ms=ev_ms(run))
+        del a, out
+    for n, k, c in K1_SHAPES:
+        pts = tuple(range(1, n + 1))
+        view = fo.pack_limbs(fk.rand_limbs((5, c), n * k * c, dev).reshape(
+            16, n, k, c)).contiguous()
+        kern = fo._open_bands(pts, k, dev)[0][0][2]
+        fold = _fold_array(fo._bal_fold_init(k), fo._bal_bias(k))
+        mb = _gemm_plan(k, n * c, nsm)
+        out = torch.empty((8, n, n, c), dtype=torch.int32, device=dev)
+        for name, lib in libs.items():
+            if name == "rows_out":
+                continue
+            def run():
+                return lib.hb_open_fused_k1(view.data_ptr(), kern.data_ptr(),
+                                            out.data_ptr(), n, k, c, mb,
+                                            fold, stream)
+            if run() != 0:
+                raise SystemExit(f"K1 {name} launch failed")
+            say(kernel="open_fused_k1", variant=name, n=n, k=k, C=c,
+                lanes_per_block=64 * mb, ms=ev_ms(run))
+        del view, out
+
+
+def time_tree(tag):
+    """band_matmul and K1 of the tree this process imports, through their
+    wrappers (whatever design that tree has)."""
+    import torch
+    from honeybadgermpc_tpu_torch.ops import band_matmul as bm
+    from honeybadgermpc_tpu_torch.ops import field_kernels as fk
+    from honeybadgermpc_tpu_torch.ops import fused_open as fo
+    from honeybadgermpc_tpu_torch.ops.fpmatmul import _vandermonde_int_rows
+    dev = torch.device("cuda")
+    for b, k, m in BAND_SHAPES:
+        a = fo.pack_limbs(fk.rand_limbs((21, k), b * k, dev).reshape(
+            16, b, k))
+        mat = _vandermonde_int_rows(tuple(range(1, m + 1)), k)
+        say(kernel="band_matmul", tree=tag, B=b, k=k, m=m,
+            ms=ev_ms(lambda: bm.band_matmul_packed(a, mat)))
+        del a
+    for n, k, c in K1_SHAPES:
+        pts = tuple(range(1, n + 1))
+        view = fo.pack_limbs(fk.rand_limbs((5, c), n * k * c, dev).reshape(
+            16, n, k, c)).contiguous()
+        say(kernel="open_fused_k1", tree=tag, n=n, k=k, C=c,
+            ms=ev_ms(lambda: fo.open_k1(view, pts)))
+        del view
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--parent", help="another checkout of the port to time "
+                    "beside this one")
+    ap.add_argument("--tree-only", metavar="TAG",
+                    help="time this process's tree through its wrappers")
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("band_core_study: no CUDA device")
+    if args.tree_only:
+        time_tree(args.tree_only)
+        return
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    say(card=smi.splitlines()[0])
+
+    def other(tag):
+        env = dict(os.environ, PYTHONPATH=os.path.abspath(args.parent))
+        subprocess.run([sys.executable, "-c",
+                        "import runpy, sys; sys.argv = ['study', "
+                        f"'--tree-only', '{tag}']; "
+                        f"runpy.run_path({os.path.abspath(__file__)!r}, "
+                        "run_name='__main__')"],
+                       env=env, check=True, cwd=os.path.abspath(args.parent))
+
+    if args.parent:
+        other("parent")
+    sys.path.insert(0, ROOT)
+    time_tree("this")
+    work = os.path.join(ROOT, "honeybadgermpc_tpu_torch", "build",
+                        "band_core_study")
+    time_variants(work)
+    if args.parent:
+        other("parent")
+
+
+if __name__ == "__main__":
+    main()

@@ -12,7 +12,10 @@ accelerator routes on the CPU: the direct open, the three-kernel open with
 its fallback (n % 8 == 0), and the host redo. Tolerance: exact equality of
 every limb word and of ok. generate_triples is word-equal in the slow tier
 (the reference's own test_generate_triples is slow); in the fast tier its
-triples are checked in Python ints."""
+triples are checked in Python ints. The reference's randousha and
+generate_bits results, and the draws the port takes from it, come from
+committed golden vectors (tests/_golden.py) in the fast tier; a slow twin
+of each test computes them live."""
 
 import jax
 import numpy as np
@@ -30,6 +33,8 @@ from honeybadgermpc_tpu_torch.ops.limbs import P, R_MOD_P, limbs_to_ints
 from honeybadgermpc_tpu_torch.parallel.mesh import SimBackend
 from honeybadgermpc_tpu_torch.runtime import offline
 
+from _golden import golden
+
 RINV = pow(R_MOD_P, P - 2, P)
 SHAPES = [(4, 1), (7, 2)]
 
@@ -43,6 +48,18 @@ def reference_draws(seed, n, t, slots):
             RefFpArray.rand(k3, (n, slots, 2 * t)))
     return tuple(FpArray(from_reference_limbs(np.asarray(v.limbs), "cpu"))
                  for v in vals)
+
+
+def draws_of(ref):
+    """The port's draws= from a reference result's stored draws."""
+    return tuple(FpArray(from_reference_limbs(ref[f"draw{i}"], "cpu"))
+                 for i in range(3))
+
+
+def stored_draws(seed, n, t, slots):
+    """reference_draws as numpy arrays, for the golden vectors."""
+    return {f"draw{i}": to_reference_limbs(d.limbs)
+            for i, d in enumerate(reference_draws(seed, n, t, slots))}
 
 
 def words(x):
@@ -66,38 +83,75 @@ def secrets_of(x, t, parties=None):
 BITS_K = {(4, 1): 8, (7, 2): 3}
 
 
-@pytest.mark.parametrize("n,t", SHAPES)
-def test_randousha_word_equal_to_the_reference(n, t):
+def _ref_randousha(n, t):
     k = 2 * BITS_K[n, t]
     ref = ref_off.randousha(RefSimBackend(n), n, t, k, jax.random.PRNGKey(1),
                             in_graph_fallback=False)
-    draws = reference_draws(1, n, t, k)
+    return {"rt": np.asarray(ref[0].limbs), "r2t": np.asarray(ref[1].limbs),
+            "ok": np.asarray(bool(ref[2])), **stored_draws(1, n, t, k)}
+
+
+def _check_randousha(ref, n, t):
+    k = 2 * BITS_K[n, t]
+    draws = draws_of(ref)
     eager = offline.randousha(SimBackend(n), n, t, k, draws=draws,
                               device="cpu")
     prog = offline.sim_offline_jit("randousha", n, t, k, True,
                                    device="cpu")(draws=draws)
     for got in (eager, prog):
         assert got[0].shape == got[1].shape == (n, k * (n - 2 * t))
-        assert np.array_equal(words(got[0]), np.asarray(ref[0].limbs))
-        assert np.array_equal(words(got[1]), np.asarray(ref[1].limbs))
-        assert bool(got[2]) is bool(ref[2]) is True
+        assert np.array_equal(words(got[0]), ref["rt"])
+        assert np.array_equal(words(got[1]), ref["r2t"])
+        assert bool(got[2]) is bool(ref["ok"]) is True
     assert secrets_of(eager[0], t) == secrets_of(eager[1], 2 * t)
 
 
 @pytest.mark.parametrize("n,t", SHAPES)
-def test_generate_bits_word_equal_to_the_reference(n, t):
+def test_randousha_word_equal_to_the_reference(n, t):
+    _check_randousha(golden(f"randousha_{n}_{t}"), n, t)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("n,t", SHAPES)
+def test_randousha_vs_the_live_reference(n, t):
+    _check_randousha(_ref_randousha(n, t), n, t)
+
+
+def _ref_bits(n, t):
     k = BITS_K[n, t]
     ref_bits, ref_ok = ref_off.generate_bits(
         RefSimBackend(n), n, t, k, jax.random.PRNGKey(3),
         in_graph_fallback=False)
-    draws = reference_draws(3, n, t, 2 * k)
-    bits, ok = offline.generate_bits(SimBackend(n), n, t, k, draws=draws,
-                                     device="cpu")
+    return {"bits": np.asarray(ref_bits.limbs),
+            "ok": np.asarray(bool(ref_ok)), **stored_draws(3, n, t, 2 * k)}
+
+
+def _check_bits(ref, n, t):
+    k = BITS_K[n, t]
+    bits, ok = offline.generate_bits(SimBackend(n), n, t, k,
+                                     draws=draws_of(ref), device="cpu")
     assert bits.shape == (n, k * (n - 2 * t))
-    assert np.array_equal(words(bits), np.asarray(ref_bits.limbs))
-    assert bool(ok) is bool(ref_ok) is True
+    assert np.array_equal(words(bits), ref["bits"])
+    assert bool(ok) is bool(ref["ok"]) is True
     vals = secrets_of(bits, t)
     assert set(vals) == {0, 1}
+
+
+@pytest.mark.parametrize("n,t", SHAPES)
+def test_generate_bits_word_equal_to_the_reference(n, t):
+    _check_bits(golden(f"bits_{n}_{t}"), n, t)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("n,t", SHAPES)
+def test_generate_bits_vs_the_live_reference(n, t):
+    _check_bits(_ref_bits(n, t), n, t)
+
+
+GOLDEN = {**{f"randousha_{n}_{t}": (lambda n=n, t=t: _ref_randousha(n, t))
+             for n, t in SHAPES},
+          **{f"bits_{n}_{t}": (lambda n=n, t=t: _ref_bits(n, t))
+             for n, t in SHAPES}}
 
 
 @pytest.mark.slow

@@ -15,7 +15,9 @@ tests' own shapes so one compile serves both:
 
 Tolerance: exact equality of every packed secret word and of the
 per-destination error vector. Each stage's plain version is also held
-against Python-int math on a few columns."""
+against Python-int math on a few columns. The reference's results come
+from committed golden vectors (tests/_golden.py); a slow twin computes
+them live."""
 
 import jax
 import numpy as np
@@ -29,6 +31,8 @@ from honeybadgermpc_tpu_torch.ops import fused_open as fo
 from honeybadgermpc_tpu_torch.ops.fused_open import pack_limbs, unpack_limbs
 from honeybadgermpc_tpu_torch.ops.limbs import (P, R_MOD_P, ints_to_limbs,
                                                 limbs_to_ints)
+
+from _golden import golden
 
 RINV = pow(R_MOD_P, P - 2, P)
 # (n, degree, faulty parties, robust): B = 2 (degree + 1), as the
@@ -64,40 +68,34 @@ def _plain(packed_np):
             for v in limbs_to_ints(limbs.numpy().view(np.uint32)).ravel()]
 
 
+def _case(name):
+    """(n, degree, robust, secrets, limbs) of case `name`."""
+    seed = list(CASES).index(name)
+    n, deg, bad, robust = CASES[name]
+    secrets, limbs = _deal(700 + seed, n, deg, 2 * (deg + 1), bad)
+    return n, deg, robust, secrets, limbs
+
+
 @pytest.fixture(scope="module")
 def cases():
-    out = {}
-    for seed, (name, (n, deg, bad, robust)) in enumerate(CASES.items()):
-        secrets, limbs = _deal(700 + seed, n, deg, 2 * (deg + 1), bad)
-        out[name] = (n, deg, robust, secrets, limbs)
-    return out
+    return {name: _case(name) for name in CASES}
 
 
-@pytest.fixture(scope="module")
-def reference(cases):
-    """name -> the reference's three-kernel open of that case, jitted
-    exactly as its own tests jit it; each case computed once per process,
-    when first asked for."""
-    res = {}
-
-    def get(name):
-        if name not in res:
-            n, deg, robust, _, limbs = cases[name]
-            packed, nerr = jax.jit(
-                lambda x: ref_open(x, n, deg, tuple(range(1, n + 1)),
-                                   robust=robust))(limbs)
-            res[name] = (np.asarray(packed), np.asarray(nerr))
-        return res[name]
-
-    return get
+def _ref_open(name):
+    """The reference's three-kernel open of case `name`, jitted exactly as
+    its own tests jit it."""
+    n, deg, robust, _, limbs = _case(name)
+    packed, nerr = jax.jit(
+        lambda x: ref_open(x, n, deg, tuple(range(1, n + 1)),
+                           robust=robust))(limbs)
+    return {"sec": np.asarray(packed), "nerr": np.asarray(nerr)}
 
 
-@pytest.mark.parametrize("name", list(CASES))
-def test_open_word_equal_to_the_reference(cases, reference, name):
-    n, deg, robust, secrets, limbs = cases[name]
+def _check_open(case, ref):
+    n, deg, robust, secrets, limbs = case
     sec, nerr = fo.sim_open_fused(from_reference_limbs(limbs, "cpu"), n,
                                   deg, tuple(range(1, n + 1)), robust=robust)
-    ref_sec, ref_nerr = reference(name)
+    ref_sec, ref_nerr = ref["sec"], ref["nerr"]
     assert sec.dtype == torch.int32 and tuple(sec.shape) == ref_sec.shape
     assert np.array_equal(to_reference_packed(sec), ref_sec)
     assert nerr.dtype == torch.int32
@@ -105,6 +103,21 @@ def test_open_word_equal_to_the_reference(cases, reference, name):
     assert (sum(nerr.tolist()) > 0) == robust
     assert _plain(ref_sec[:, 0]) == secrets
     assert _plain(ref_sec[:, n - 1]) == secrets
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_open_word_equal_to_the_reference(cases, name):
+    _check_open(cases[name], golden(f"open_fused_{name}"))
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", list(CASES))
+def test_open_vs_the_live_reference(cases, name):
+    _check_open(cases[name], _ref_open(name))
+
+
+GOLDEN = {f"open_fused_{name}": (lambda name=name: _ref_open(name))
+          for name in CASES}
 
 
 def test_open_calls_parts_compose_to_the_open(cases):

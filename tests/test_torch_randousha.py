@@ -4,7 +4,9 @@ Pallas kernels in interpret mode, as tests/test_fused_randousha.py runs
 them (n=8, t=2, 128 slots) — and against Python-int Lagrange interpolation.
 The reference's receive tensor is permuted into the port's layout
 (interop.from_reference_receive). Tolerance: exact equality of every word,
-padding rows included, and of the ok flag."""
+padding rows included, and of the ok flag. The reference's stage outputs
+are committed golden vectors (tests/_golden.py) in the fast tier; a slow
+test computes them live and holds them equal to the stored ones."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,6 +20,8 @@ from honeybadgermpc_tpu_torch.interop import (from_reference_receive,
 from honeybadgermpc_tpu_torch.ops import fused_randousha as fr
 from honeybadgermpc_tpu_torch.ops.fused_open import _lam_int, unpack_limbs
 from honeybadgermpc_tpu_torch.ops.limbs import P, limbs_to_ints
+
+from _golden import golden
 
 N, T, K = 8, 2, 128
 N_OUT, N_OUTP = N - 2 * T, 8
@@ -40,9 +44,8 @@ def interpolate(shares, parties, x0=0):
     return sum(l * int(shares[j]) for l, j in zip(lam, parties)) % P
 
 
-@pytest.fixture(scope="module")
-def ref():
-    """Every stage of the reference, once."""
+def _ref_stages():
+    """Every stage of the reference, and its two entry points."""
     run = ref_fr._randousha_calls(N, T, K, POINTS, aggregate=True)
     kd_t, kd_2, ke, _, _, e1w, e2w, *_ = run.parts
     key = jnp.asarray(to_reference_key(KEY))
@@ -51,10 +54,30 @@ def ref():
     band = run.folded_band(key)
     keep_t, z_t = ke(cols_t, band)
     keep_2t, z_2t = ke(cols_2t, band)
-    return {"cols_t": np.asarray(cols_t), "cols_2t": np.asarray(cols_2t),
-            "keep_t": np.asarray(keep_t), "z_t": np.asarray(z_t),
-            "keep_2t": np.asarray(keep_2t), "z_2t": np.asarray(z_2t),
-            "key": key}
+    rt, r2, ok2 = ref_fr.sim_randousha_fused(key, N, T, K)
+    ra, oka = ref_fr.sim_ransha_fused(key, N, T, K)
+    out = {"cols_t": cols_t, "cols_2t": cols_2t, "keep_t": keep_t,
+           "z_t": z_t, "keep_2t": keep_2t, "z_2t": z_2t, "rt": rt,
+           "r2t": r2, "ok_randousha": bool(ok2), "ra": ra,
+           "ok_ransha": bool(oka)}
+    return {name: np.asarray(v) for name, v in out.items()}
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """Every stage of the reference (golden vectors)."""
+    return golden("randousha_stages")
+
+
+@pytest.mark.slow
+def test_golden_stages_equal_the_live_reference(ref):
+    live = _ref_stages()
+    assert sorted(live) == sorted(ref)
+    for name, arr in live.items():
+        assert np.array_equal(arr, ref[name]), name
+
+
+GOLDEN = {"randousha_stages": _ref_stages}
 
 
 @pytest.fixture(scope="module")
@@ -139,10 +162,8 @@ def test_extracted_sharings_python_ints(port):
 
 @pytest.fixture(scope="module")
 def ref_outputs(ref):
-    rt, r2, ok2 = ref_fr.sim_randousha_fused(ref["key"], N, T, K)
-    ra, oka = ref_fr.sim_ransha_fused(ref["key"], N, T, K)
-    return (np.asarray(rt), np.asarray(r2), bool(ok2), np.asarray(ra),
-            bool(oka))
+    return (ref["rt"], ref["r2t"], bool(ref["ok_randousha"]), ref["ra"],
+            bool(ref["ok_ransha"]))
 
 
 def test_sim_randousha_fused_vs_reference(ref, ref_outputs):

@@ -7,7 +7,9 @@ runs them (n=8, t=2, 128 slots) — and against Python-int interpolation.
 The reference's receive and check tensors are permuted into the port's
 layout (interop.from_reference_receive, from_reference_check). Tolerance:
 exact equality of every word, keep padding rows and check padding columns
-included, and of every error count."""
+included, and of every error count. The reference's stage outputs are
+committed golden vectors (tests/_golden.py) in the fast tier; a slow test
+computes them live and holds them equal to the stored ones."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,6 +26,8 @@ from honeybadgermpc_tpu_torch.ops.fparray import FpArray
 from honeybadgermpc_tpu_torch.ops.fused_open import (_lam_int, pack_limbs,
                                                      unpack_limbs)
 from honeybadgermpc_tpu_torch.ops.limbs import L, P, W, limbs_to_ints
+
+from _golden import golden
 
 N, T, K = 8, 2, 128
 N_OUT, N_OUTP, NCHECK, NCHECKP = N - 2 * T, 8, 2 * T, 8
@@ -54,25 +58,47 @@ def flip(cols, degree):
     return cols
 
 
-@pytest.fixture(scope="module")
-def ref():
-    """The reference's per-column stages, once, honest and with the flip of
+def _ref_stages():
+    """The reference's per-column stages, honest and with the flip of
     tests/test_fused_randousha.py:63-64 (reference layout
-    [nblk, njt, PL, n, JT, TBW])."""
+    [nblk, njt, PL, n, JT, TBW]), flat: "meta" and "<name>.<stage>"."""
     run = ref_fr._randousha_calls(N, T, K, POINTS, aggregate=False)
     kd_t, kd_2, ke, kc_t, kc_2, e1w, e2w, enw, r1w, r2w = run.parts
     key = jnp.asarray(to_reference_key(KEY)).reshape(1, 2)
-    out = {"meta": run.meta}
+    out = {"meta": np.asarray(run.meta)}
     cols = {"t": kd_t(key, e1w), "2t": kd_2(key, e2w)}
     cols["bad"] = cols["t"].at[0, 0, 0, 3, 1, 17].add(jnp.uint32(1))
     for name, c in cols.items():
         keep, chk = ke(c, enw)
         vals, errs = (kc_2 if name == "2t" else kc_t)(
             chk, r2w if name == "2t" else r1w)
-        out[name] = {k: np.asarray(v) for k, v in (
-            ("cols", c), ("keep", keep), ("chk", chk), ("vals", vals),
-            ("errs", errs))}
+        for k, v in (("cols", c), ("keep", keep), ("chk", chk),
+                     ("vals", vals), ("errs", errs)):
+            out[f"{name}.{k}"] = np.asarray(v)
     return out
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The reference's per-column stages (golden vectors), nested:
+    ref["meta"], ref[name][stage]."""
+    flat = golden("per_column_stages")
+    out = {"meta": tuple(int(v) for v in flat.pop("meta"))}
+    for key, arr in flat.items():
+        name, stage = key.split(".")
+        out.setdefault(name, {})[stage] = arr
+    return out
+
+
+@pytest.mark.slow
+def test_golden_stages_equal_the_live_reference():
+    live, stored = _ref_stages(), golden("per_column_stages")
+    assert sorted(live) == sorted(stored)
+    for key, arr in live.items():
+        assert np.array_equal(arr, stored[key]), key
+
+
+GOLDEN = {"per_column_stages": _ref_stages}
 
 
 def ref_nerr(ref, deg_t="t", single=False):

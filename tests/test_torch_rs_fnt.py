@@ -7,8 +7,9 @@ The party subsets are the reference's own (tests/test_rs.py): n = 7 with
 (0, 1, 2), (1, 3, 6), (4, 2, 5), and n = 16 with (15, 0, 7, 3, 9, 12).
 The reference's FNT decode is one jitted program per shape; it runs live
 at one subset (the others differ only in host tables, which are compared
-for every subset). Inputs come from a numpy seed; tolerance: exact
-equality of every limb."""
+for every subset), from committed golden vectors (tests/_golden.py) in the
+fast tier and live in its slow twin. Inputs come from a numpy seed;
+tolerance: exact equality of every limb."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +22,8 @@ from honeybadgermpc_tpu_torch.interop import (from_reference_limbs,
 from honeybadgermpc_tpu_torch.ops import rs
 from honeybadgermpc_tpu_torch.ops.fparray import FpArray
 from honeybadgermpc_tpu_torch.ops.limbs import P, R_MOD_P, ints_to_limbs
+
+from _golden import golden
 
 SUBSETS = [(7, (0, 1, 2)), (7, (1, 3, 6)), (7, (4, 2, 5)),
            (16, (15, 0, 7, 3, 9, 12))]
@@ -71,20 +74,40 @@ def test_fnt_step1_tables_equal_the_reference(n, zs):
                           ref_rs._scatter_matrix(enc.order, zs))
 
 
+def _ref_encode_decode():
+    """The reference's NTT encode and its jitted FNT decode at n = 7,
+    subset (1, 3, 6)."""
+    n, zs = 7, (1, 3, 6)
+    x = _limbs(_coeffs(11, 4, 3))
+    ref_enc = ref_rs.Encoding(n, True)
+    ref_shares = ref_enc.encode(RefFpArray(jnp.asarray(x)))
+    want = ref_enc.decode(zs, ref_shares.take(list(zs), axis=1))
+    return {"shares": np.asarray(ref_shares.limbs),
+            "decoded": np.asarray(want.limbs)}
+
+
+def _check_encode_decode(ref):
+    n, zs = 7, (1, 3, 6)
+    x = _limbs(_coeffs(11, 4, 3))
+    enc = rs.Encoding(n, True)
+    shares = enc.encode(FpArray(from_reference_limbs(x, "cpu")))
+    assert np.array_equal(to_reference_limbs(shares.limbs), ref["shares"])
+    got = enc.decode(zs, shares.take(list(zs), axis=1))
+    assert np.array_equal(to_reference_limbs(got.limbs), ref["decoded"])
+
+
 def test_encode_and_fnt_decode_word_equal_to_the_reference():
     """The reference's NTT encode and its jitted FNT decode at n = 7,
     subset (1, 3, 6), word for word."""
-    n, zs = 7, (1, 3, 6)
-    x = _limbs(_coeffs(11, 4, 3))
-    enc, ref_enc = rs.Encoding(n, True), ref_rs.Encoding(n, True)
-    shares = enc.encode(FpArray(from_reference_limbs(x, "cpu")))
-    ref_shares = ref_enc.encode(RefFpArray(jnp.asarray(x)))
-    assert np.array_equal(to_reference_limbs(shares.limbs),
-                          np.asarray(ref_shares.limbs))
-    got = enc.decode(zs, shares.take(list(zs), axis=1))
-    want = ref_enc.decode(zs, ref_shares.take(list(zs), axis=1))
-    assert np.array_equal(to_reference_limbs(got.limbs),
-                          np.asarray(want.limbs))
+    _check_encode_decode(golden("rs_encode_decode"))
+
+
+@pytest.mark.slow
+def test_encode_and_fnt_decode_vs_the_live_reference():
+    _check_encode_decode(_ref_encode_decode())
+
+
+GOLDEN = {"rs_encode_decode": _ref_encode_decode}
 
 
 def test_selectors_choose_as_the_reference():

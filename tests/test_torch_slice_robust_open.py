@@ -12,7 +12,9 @@ the direct open charges the source party, the Gao paths the destination.
 
 Shapes are the reference's own tests' (tests/test_reconstruct.py,
 tests/test_offline.py, tests/test_fused_open.py), so one persistent XLA
-cache serves both."""
+cache serves both. The reference's results come from committed golden
+vectors (tests/_golden.py, made by tests/make_golden.py); each such test
+has a twin in the slow tier that runs the reference live."""
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +38,8 @@ from honeybadgermpc_tpu_torch.ops.limbs import (P, R_MOD_P, ints_to_limbs,
                                                 limbs_to_ints)
 from honeybadgermpc_tpu_torch.parallel import reconstruct as rec
 from honeybadgermpc_tpu_torch.parallel.mesh import SimBackend
+
+from _golden import golden
 
 RINV = pow(R_MOD_P, P - 2, P)
 
@@ -81,20 +85,25 @@ def _mont_words(vals):
                                    for row in vals], object))
 
 
-def test_sim_batch_reconstruct_and_redo_word_equal_to_the_reference():
-    """The two-phase open at n=7, t=2 with party 2 faulty: the port's
-    sim_batch_reconstruct (direct open, then host_robust_redo) against the
-    reference's host_robust_redo and its CPU sim_batch_reconstruct (the
-    generic program with the in-graph Gao fallback): same secrets, same
-    per-destination counts (C*|S| = 3 at every party). Honest shares open
-    with nerr == 0."""
+def _ref_sim_batch():
+    """The reference's host_robust_redo and its CPU sim_batch_reconstruct
+    (the generic program with the in-graph Gao fallback) at n=7, t=2 with
+    party 2 faulty; the two agree."""
     n, t, B = 7, 2, 9
-    secrets, honest, faulty = _deal(1, n, t, B, [2])
+    _, _, faulty = _deal(1, n, t, B, [2])
     ref_sec, ref_nerr = ref_rec.host_robust_redo(faulty, n, t)
     ref_sec2, ref_nerr2 = ref_rec.sim_batch_reconstruct(
         RefFpArray(jnp.asarray(faulty)), n, t)
     assert np.array_equal(np.asarray(ref_sec2.limbs), ref_sec)
-    assert np.asarray(ref_nerr2).tolist() == ref_nerr.tolist() == [3] * n
+    assert np.asarray(ref_nerr2).tolist() == ref_nerr.tolist()
+    return {"sec": np.asarray(ref_sec), "nerr": np.asarray(ref_nerr)}
+
+
+def _check_sim_batch(ref):
+    n, t, B = 7, 2, 9
+    secrets, honest, faulty = _deal(1, n, t, B, [2])
+    ref_sec, ref_nerr = ref["sec"], ref["nerr"]
+    assert ref_nerr.tolist() == [3] * n
 
     sec, nerr = rec.sim_batch_reconstruct(_port_fp(faulty), n, t)
     assert np.array_equal(to_reference_limbs(sec.limbs), ref_sec)
@@ -104,6 +113,21 @@ def test_sim_batch_reconstruct_and_redo_word_equal_to_the_reference():
     sec_h, nerr_h = rec.sim_batch_reconstruct(_port_fp(honest), n, t)
     assert np.array_equal(to_reference_limbs(sec_h.limbs), ref_sec)
     assert nerr_h.tolist() == [0] * n
+
+
+def test_sim_batch_reconstruct_and_redo_word_equal_to_the_reference():
+    """The two-phase open at n=7, t=2 with party 2 faulty: the port's
+    sim_batch_reconstruct (direct open, then host_robust_redo) against the
+    reference's host_robust_redo and its CPU sim_batch_reconstruct (the
+    generic program with the in-graph Gao fallback): same secrets, same
+    per-destination counts (C*|S| = 3 at every party). Honest shares open
+    with nerr == 0."""
+    _check_sim_batch(golden("robust_sim_batch"))
+
+
+@pytest.mark.slow
+def test_sim_batch_reconstruct_and_redo_vs_the_live_reference():
+    _check_sim_batch(_ref_sim_batch())
 
 
 def test_host_robust_redo_does_not_depend_on_segments():
@@ -123,55 +147,109 @@ def test_host_robust_redo_does_not_depend_on_segments():
     assert nerr.tolist() == [1] * n
 
 
-def test_batch_reconstruct_with_faults_word_equal_to_the_reference():
-    """n=7, t=2, parties 0 and 5 faulty: R1 falls back to Gao."""
+def _ref_batch():
     n, t, B = 7, 2, 6
-    secrets, _, faulty = _deal(2, n, t, B, [0, 5])
+    _, _, faulty = _deal(2, n, t, B, [0, 5])
     ref_sec, ref_nerr = ref_rec.batch_reconstruct(
         RefSimBackend(n), RefFpArray(jnp.asarray(faulty)), n, t)
+    return {"sec": np.asarray(ref_sec.limbs), "nerr": np.asarray(ref_nerr)}
+
+
+def _check_batch(ref):
+    n, t, B = 7, 2, 6
+    secrets, _, faulty = _deal(2, n, t, B, [0, 5])
     sec, nerr = rec.batch_reconstruct(SimBackend(n), _port_fp(faulty), n, t)
-    assert np.array_equal(to_reference_limbs(sec.limbs),
-                          np.asarray(ref_sec.limbs))
-    assert nerr.tolist() == np.asarray(ref_nerr).tolist() == [4] * n
+    assert np.array_equal(to_reference_limbs(sec.limbs), ref["sec"])
+    assert nerr.tolist() == ref["nerr"].tolist() == [4] * n
     assert _plain_rows(to_reference_limbs(sec.limbs)) == [secrets] * n
 
 
-def test_robust_open_single_word_equal_to_the_reference():
+def test_batch_reconstruct_with_faults_word_equal_to_the_reference():
+    """n=7, t=2, parties 0 and 5 faulty: R1 falls back to Gao."""
+    _check_batch(golden("robust_batch"))
+
+
+@pytest.mark.slow
+def test_batch_reconstruct_with_faults_vs_the_live_reference():
+    _check_batch(_ref_batch())
+
+
+def _ref_single():
     n, t, S = 7, 2, 3
-    secrets, _, faulty = _deal(3, n, t, S, [1, 6])
+    _, _, faulty = _deal(3, n, t, S, [1, 6])
     ref_vals, ref_errs = ref_rec.robust_open_single(
         RefSimBackend(n), RefFpArray(jnp.asarray(faulty)), n, t)
+    return {"vals": np.asarray(ref_vals.limbs), "errs": np.asarray(ref_errs)}
+
+
+def _check_single(ref):
+    n, t, S = 7, 2, 3
+    secrets, _, faulty = _deal(3, n, t, S, [1, 6])
     vals, errs = rec.robust_open_single(SimBackend(n), _port_fp(faulty), n, t)
-    assert np.array_equal(to_reference_limbs(vals.limbs),
-                          np.asarray(ref_vals.limbs))
-    assert np.array_equal(errs.numpy(), np.asarray(ref_errs))
+    assert np.array_equal(to_reference_limbs(vals.limbs), ref["vals"])
+    assert np.array_equal(errs.numpy(), ref["errs"])
     assert _plain_rows(to_reference_limbs(vals.limbs)) == [secrets] * n
     assert errs.tolist() == [[2] * S] * n
+
+
+def test_robust_open_single_word_equal_to_the_reference():
+    _check_single(golden("robust_single"))
+
+
+@pytest.mark.slow
+def test_robust_open_single_vs_the_live_reference():
+    _check_single(_ref_single())
+
+
+def _ref_direct():
+    n, t, B = 8, 2, 6
+    points = tuple(range(1, n + 1))
+    _, honest, faulty = _deal(4, n, t, B, [5])
+    packed = np.asarray(jax.jit(ref_pack)(jnp.asarray(faulty)))
+    ref_sec, ref_nerr = jax.jit(lambda p: ref_direct(
+        p, n, t, points, robust=True))(jnp.asarray(packed))
+    return {"packed": packed, "sec": np.asarray(ref_sec),
+            "nerr": np.asarray(ref_nerr),
+            "packed_honest": np.asarray(jax.jit(ref_pack)(
+                jnp.asarray(honest)))}
+
+
+def _check_direct(ref):
+    n, t, B = 8, 2, 6
+    points = tuple(range(1, n + 1))
+    secrets, _, _ = _deal(4, n, t, B, [5])
+    sec, nerr = fod.sim_open_direct_packed(
+        from_reference_packed(ref["packed"], "cpu"), n, t, points,
+        robust=True)
+    assert np.array_equal(sec.numpy().view(np.uint32), ref["sec"])
+    assert nerr.tolist() == ref["nerr"].tolist()
+    assert sum(nerr.tolist()) > 0
+    assert _plain_rows(to_reference_limbs(unpack_limbs(sec))) == \
+        [secrets] * n
+    # honest shares: the detect-only result, no redo
+    hp = from_reference_packed(ref["packed_honest"], "cpu")
+    sec_h, nerr_h = fod.sim_open_direct_packed(hp, n, t, points, robust=True)
+    want_h, _ = fod.sim_open_direct_packed(hp, n, t, points)
+    assert torch.equal(sec_h, want_h) and nerr_h.tolist() == [0] * n
 
 
 def test_direct_open_robust_fallback_word_equal_to_the_reference():
     """sim_open_direct_packed(robust=True) at n=8, t=2 with party 5
     faulty: the detect-only kernel sees the fault, batch_reconstruct
-    corrects it; packed secrets and counts as the reference's."""
-    n, t, B = 8, 2, 6
-    points = tuple(range(1, n + 1))
-    secrets, honest, faulty = _deal(4, n, t, B, [5])
-    packed = np.asarray(jax.jit(ref_pack)(jnp.asarray(faulty)))
-    ref_sec, ref_nerr = jax.jit(lambda p: ref_direct(
-        p, n, t, points, robust=True))(jnp.asarray(packed))
-    sec, nerr = fod.sim_open_direct_packed(
-        from_reference_packed(packed, "cpu"), n, t, points, robust=True)
-    assert np.array_equal(sec.numpy().view(np.uint32), np.asarray(ref_sec))
-    assert nerr.tolist() == np.asarray(ref_nerr).tolist()
-    assert sum(nerr.tolist()) > 0
-    assert _plain_rows(to_reference_limbs(unpack_limbs(sec))) == \
-        [secrets] * n
-    # honest shares: the detect-only result, no redo
-    hp = from_reference_packed(np.asarray(jax.jit(ref_pack)(
-        jnp.asarray(honest))), "cpu")
-    sec_h, nerr_h = fod.sim_open_direct_packed(hp, n, t, points, robust=True)
-    want_h, _ = fod.sim_open_direct_packed(hp, n, t, points)
-    assert torch.equal(sec_h, want_h) and nerr_h.tolist() == [0] * n
+    corrects it; packed secrets and counts as the reference's. The packed
+    shares are the reference's pack_limbs of the dealt limbs (the golden
+    file holds them; the port's pack is compared with the reference's in
+    test_torch_bands.py)."""
+    _check_direct(golden("robust_direct"))
+
+
+@pytest.mark.slow
+def test_direct_open_robust_fallback_vs_the_live_reference():
+    _check_direct(_ref_direct())
+
+
+GOLDEN = {"robust_sim_batch": _ref_sim_batch, "robust_batch": _ref_batch,
+          "robust_single": _ref_single, "robust_direct": _ref_direct}
 
 
 def test_inject_share_faults_replaces_only_the_listed_parties():

@@ -8,7 +8,7 @@ kernels in interpret mode), the degree-2t direct open (interpret mode), and
 its two packed finish kernels through their plain versions in ops/
 montgomery.py (the interpret-mode compile of those two takes ten minutes
 or more each on a CPU; the reference's own tests keep them in the slow
-tier). The ``reference`` fixture mirrors lines 259-301 of the reference's
+tier). ``_ref_triples`` mirrors lines 259-301 of the reference's
 ``runtime/offline.py`` statement for statement: the key split (:259), the
 three dealings (:266-269), the 2t opener (:271), ``z = a*b + r_2t`` (:288),
 the flatten and zero pad to a multiple of 2t+1 (:289-294), the open (:295),
@@ -16,7 +16,8 @@ the flatten and zero pad to a multiple of 2t+1 (:289-294), the open (:295),
 that function itself, Pallas finish kernels included. The port gets the
 same three key pairs. Tolerance: exact equality of every word of pa,
 pb, pab and of ok; the opened triples satisfy ab == a*b mod p in Python
-ints."""
+ints. In the fast tier the reference's results are committed golden
+vectors (tests/_golden.py); a slow twin computes them live."""
 
 import jax
 import jax.numpy as jnp
@@ -41,6 +42,8 @@ from honeybadgermpc_tpu_torch.parallel.reconstruct import \
     _sim_reconstruct_packed_jit
 from honeybadgermpc_tpu_torch.runtime import offline
 
+from _golden import golden
+
 N, T, K = 8, 2, 128
 N_OUT, N_OUTP = N - 2 * T, 8
 CNTP = N_OUTP * K
@@ -52,8 +55,13 @@ def subkeys():
     return [np.asarray(ref_key_data(k)) for k in parts]
 
 
-@pytest.fixture(scope="module")
-def reference(subkeys):
+def _ref_triples(subkeys=None):
+    """The reference's fused_generate_triples(packed=True), stage by stage
+    on the key data of its own split of PRNGKey(3) (see the module
+    docstring)."""
+    if subkeys is None:
+        subkeys = [np.asarray(ref_key_data(k))
+                   for k in jax.random.split(jax.random.PRNGKey(3), 3)]
     ka, kb, kr = (jnp.asarray(k) for k in subkeys)
     pa, oka = ref_fr.sim_ransha_fused(ka, N, T, K, padded=True)
     pb, okb = ref_fr.sim_ransha_fused(kb, N, T, K, padded=True)
@@ -71,7 +79,27 @@ def reference(subkeys):
     ok = oka & okb & okr & (jnp.sum(nerr) == 0)
     minuend = ref_unpack(opened[:, :CNTP].reshape(8, N_OUTP, K))
     pab = ref_pack(ref_mont.sub_mod(minuend[:, None], ref_unpack(prt)))
-    return np.asarray(pa), np.asarray(pb), np.asarray(pab), bool(ok)
+    return {"pa": np.asarray(pa), "pb": np.asarray(pb),
+            "pab": np.asarray(pab), "ok": np.asarray(bool(ok)),
+            "subkeys": np.stack(subkeys)}
+
+
+def _as_tuple(ref, subkeys):
+    assert np.array_equal(ref["subkeys"], np.stack(subkeys))
+    return ref["pa"], ref["pb"], ref["pab"], bool(ref["ok"])
+
+
+@pytest.fixture(scope="module")
+def reference(subkeys):
+    return _as_tuple(golden("triples"), subkeys)
+
+
+@pytest.fixture(scope="module")
+def live_reference(subkeys):
+    return _as_tuple(_ref_triples(subkeys), subkeys)
+
+
+GOLDEN = {"triples": _ref_triples}
 
 
 @pytest.fixture(scope="module")
@@ -81,11 +109,21 @@ def port(subkeys):
     return fn(subkeys=tuple(from_reference_key(k) for k in subkeys))
 
 
-@pytest.mark.parametrize("which", [0, 1, 2], ids=["pa", "pb", "pab"])
-def test_triples_word_equal_to_the_reference(reference, port, which):
+def _check_triples(reference, port, which):
     got = port[which]
     assert got.dtype == torch.int32 and tuple(got.shape) == (8, N, N_OUTP, K)
     assert np.array_equal(to_reference_packed(got), reference[which])
+
+
+@pytest.mark.parametrize("which", [0, 1, 2], ids=["pa", "pb", "pab"])
+def test_triples_word_equal_to_the_reference(reference, port, which):
+    _check_triples(reference, port, which)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("which", [0, 1, 2], ids=["pa", "pb", "pab"])
+def test_triples_vs_the_live_reference(live_reference, port, which):
+    _check_triples(live_reference, port, which)
 
 
 def test_triples_ok_flag(reference, port):
