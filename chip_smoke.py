@@ -39,7 +39,8 @@ into ``honeybadgermpc_tpu_torch/build``.
 Phases, each printing one JSON line; any failure exits non-zero (18 and
 19 run right after 10):
   1 device    a CUDA card must be present; prints its name and power limit
-  2 build     compile and load the nineteen kernels
+  2 build     compile and load the nineteen kernels; ptxas registers
+              and spills of the kernels on the wgmma core
   3 kernels   each kernel against its plain PyTorch version on the card,
               bit for bit, at small, unaligned and main-path shapes, with
               times and the computed bound; row 3 (band_matmul, on the wgmma
@@ -72,7 +73,10 @@ Phases, each printing one JSON line; any failure exits non-zero (18 and
               programs' shapes (k = 22 and 43), an unaligned chunk count and
               a small shape, honest and faulted, a Python-int sample each;
               K1 also at C = 1, 7819 and 7820 (k = 22 and 43), the edges of
-              its lane tiles
+              its lane tiles; K2 (on the wgmma core) also at C = 1, 65 (a
+              destination boundary inside a 64-lane tile) and 7819 (a
+              ragged 256-lane tile), with faults in its first and last
+              compare columns: per-destination counts equal
  14 programs  each program in both modes once with the launch counts set
               to 0 just before and read just after: ok; r_t and r_2t open
               to equal secrets; ab == a*b for every triple; every bit is 0
@@ -99,7 +103,9 @@ Phases, each printing one JSON line; any failure exits non-zero (18 and
  18 per-column kernels  rows 5b, 6 and 11 (randousha_extract_pc,
               randousha_check, sub_bcast_packed) against their plain
               versions on the card, bit for bit: the extraction and check at
-              n=8, t=2, sp=128 and n=64, t=21, sp=4096, both degrees, the
+              n=8, t=2, sp=128 and n=64, t=21, sp=4096, both degrees (the
+              extraction once more on outputs filled with nonzero bytes:
+              every word written, the zero check rows too), the
               check also on a flipped word (1 at that lane only); the flat
               subtract at [8,3,77] and at the flat finish's [8,90112] -
               [8,64,90112], also against montgomery.sub_mod; times, bounds
@@ -141,6 +147,7 @@ import argparse
 import itertools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -159,6 +166,8 @@ from honeybadgermpc_tpu_torch.ops import fused_open_direct as fod  # noqa: E402
 from honeybadgermpc_tpu_torch.ops import fused_randousha as fr  # noqa: E402
 from honeybadgermpc_tpu_torch.ops import montgomery as mont  # noqa: E402
 from honeybadgermpc_tpu_torch.ops import mxu_matmul as mxu  # noqa: E402
+from honeybadgermpc_tpu_torch.ops.band_gemm import \
+    _gemm_band_index  # noqa: E402
 from honeybadgermpc_tpu_torch.ops.fparray import (  # noqa: E402
     FpArray, dev_const)
 from honeybadgermpc_tpu_torch.ops.fpmatmul import (  # noqa: E402
@@ -1452,6 +1461,41 @@ def compare_k1(dev, n, k, c, key):
     return max_abs_err(cols, want)
 
 
+def compare_k2(dev, n, k, c, key):
+    """K2 alone against its plain version, bit for bit, on consistent
+    columns and with faults in its last and first compare columns (sources
+    n-1 and k) at two destinations whose lanes share a 64-lane tile (C = 1:
+    lanes 2 and 3; else lanes 64 and 65, a destination boundary inside the
+    tile), and in the first at the last lane: the per-destination counts
+    equal the plain version's and one per fault."""
+    pts = tuple(range(1, n + 1))
+    view = deal_packed(dev, n, k - 1, k * c, key).reshape(PL, n, k, c)
+    cols = fo.open_k1(view, pts)
+    del view
+    (j0, c0), (j1, c1) = ((2, 0), (3, 0)) if c == 1 else ((0, c - 1), (1, 0))
+    worst = 0
+    for faults in ((), ((3, n - 1, j0, c0), (0, k, j1, c1),
+                        (7, k, n - 1, c - 1))):
+        x = cols
+        if faults:
+            x = cols.clone()
+            for w, src, j, cc in faults:
+                x[w, src, j, cc] ^= 0x40
+        vals, errs = fo.open_k2(x, pts, k)
+        vals_p, errs_p = fo._k2_plain(x, pts, k)
+        sync()
+        check(torch.equal(vals, vals_p) and torch.equal(errs, errs_p),
+              f"open_fused K2 != plain at {(n, k, c)} faults={faults}")
+        want = [0] * n
+        for _, _, j, _ in faults:
+            want[j] += 1
+        check(errs.tolist() == want, f"open_fused K2 counts "
+              f"{errs.tolist()} at {(n, k, c)}, want {want}")
+        worst = max(worst, max_abs_err(vals, vals_p),
+                    max_abs_err(errs, errs_p))
+    return worst
+
+
 def compare_mul_add(dev, b):
     x = [pack_limbs(rand_field(dev, (71 + i, b), (b,))) for i in range(3)]
     got = fk.mul_add_packed(*x)
@@ -1500,6 +1544,15 @@ def phase_kernels_programs(dev):
         err["open_fused_k1"] = max(err["open_fused_k1"],
                                    compare_k1(dev, n, k, c, (79, c)))
         shapes.append(f"open_fused K1 n={n} k={k} C={c}")
+    # K2 on the wgmma core: the ragged column tile (nv + 1 = 43 at k = 22),
+    # destination boundaries inside a 64-lane tile (C = 1, 65), the ragged
+    # 256-lane tile (C = 7819 at k = 22)
+    for n, k, c in ((N, K, 1), (N, K, 65), (N, K, C_T - 1),
+                    (N, 2 * T + 1, 1), (N, 2 * T + 1, 65)):
+        err["open_fused_k2"] = max(err["open_fused_k2"],
+                                   compare_k2(dev, n, k, c, (83, c)))
+        shapes.append(f"open_fused K2 n={n} k={k} C={c} (+ faults in the "
+                      f"first and last compare columns)")
     worst = 0
     for b in (1, 777, N * N_OUT * KT):
         e, operands = compare_mul_add(dev, b)
@@ -1633,7 +1686,7 @@ def phase_programs(dev, reps):
         dt = (time.perf_counter() - t0) / nrep
         check(bool(out[-1]), f"timed {tag}: ok is false")
         del out
-        busy_ms, nkern, top = device_busy_ms(lambda: fn((3040 + i, 0)), 8)
+        busy_ms, nkern, top = device_busy_ms(lambda: fn((3040 + i, 0)), 12)
         per_call[tag] = {"ms_per_call": dt * 1e3,
                          "outputs_per_s": N_OUT * KT / dt,
                          "device_busy_ms_per_call": busy_ms,
@@ -2028,6 +2081,22 @@ def compare_extract_pc(dev, n, t, sp, cols):
     sync()
     check(torch.equal(keep, keep_p) and torch.equal(chk, chk_p),
           f"randousha_extract_pc != plain at n={n} t={t} sp={sp}")
+    # the kernel once more, on outputs that hold nonzero bytes: it must
+    # write every word, the zero check rows too
+    junk = [torch.full((PL, n, rows, sp), 0x5A5A5A5A, dtype=torch.int32,
+                       device=dev) for rows in (n_outp, ncheckp)]
+    tiles = band.reshape(-1)[torch.from_numpy(
+        _gemm_band_index(band.shape[0] // 32, n, n, band.shape[1])).to(dev)]
+    rc = _build.lib().hb_randousha_extract_pc(
+        cols.data_ptr(), tiles.data_ptr(), junk[0].data_ptr(),
+        junk[1].data_ptr(), n, sp, n_out, n_outp, ncheckp,
+        *fo._gemm_args(n, n * sp, dev),
+        torch.cuda.current_stream().cuda_stream)
+    sync()
+    check(rc == 0 and torch.equal(junk[0], keep_p)
+          and torch.equal(junk[1], chk_p),
+          f"randousha_extract_pc on 0x5A-filled outputs != plain at n={n}")
+    del junk, tiles
     check(torch.equal(keep[:, :, n_out:], chk[:, :, :n_outp - n_out])
           and not bool(chk[:, :, ncheck:].any()),
           "extract_pc: keep rows n_out.. must be the first check columns, "
@@ -2310,6 +2379,35 @@ def phase_per_column(dev, reps):
     return full["double"], rates
 
 
+def ptxas_core(log):
+    """Registers and spill bytes of the kernels on csrc/band_gemm.cuh, from
+    ptxas' report in the build log: {"<kernel> lanes=<64 MB>": "<registers>
+    registers, <stores>/<loads> spill bytes"}."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '_ZN2hb(\d+)(\w+)'", ln)
+        if m:                                 # hb::<name><MB>: mangled
+            spills = "spills not reported"
+            kern, rest = m.group(2)[:int(m.group(1))], m.group(2)
+            mb = re.match(r"ILi(\d)E", rest[len(kern):])
+            name = f"{kern} lanes={64 * int(mb.group(1))}" if mb and kern in (
+                "band_matmul_kernel", "open_fused_k1_kernel",
+                "open_fused_k2_kernel", "randousha_extract_pc_kernel") \
+                else None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            spills = f"{m.group(1)}/{m.group(2)} spill bytes"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name] = f"{m.group(1)} registers, {spills}"
+            name = None
+    return out
+
+
 def kernels_line(times, err, launches, launches_triples, launches_robust,
                  launches_programs, launches_ntl, launches_pc, int_mm_ms):
     """The rows of the `kernels` JSON line, one per kernel: its source, the
@@ -2447,7 +2545,8 @@ def kernels_line(times, err, launches, launches_triples, launches_robust,
             row["streamed_shape"] = {"ms": ms3, "plain_ms": plain3,
                                      "bound_ms": bound3, "bound_by": by3,
                                      "shape": shape3}
-        if name in ("band_matmul", "open_fused_k1"):
+        if name in ("band_matmul", "open_fused_k1", "open_fused_k2",
+                    "randousha_extract_pc"):
             row["core"] = "honeybadgermpc_tpu_torch/csrc/band_gemm.cuh"
         if name == "band_matmul":
             row["eager_shapes"] = []
@@ -2492,7 +2591,8 @@ def main():
     say("build", ok=True, seconds=round(time.perf_counter() - t0, 3),
         nvcc_seconds=_build.build_seconds,
         ptxas=[ln.strip() for ln in _build.build_log().splitlines()
-               if "registers" in ln])
+               if "registers" in ln],
+        ptxas_band_core=ptxas_core(_build.build_log()))
 
     err, times = phase_kernels(dev)
     launches, rates = phase_main(dev, args.nseg, args.reps)

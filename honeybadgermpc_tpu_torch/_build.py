@@ -119,17 +119,17 @@ def _declare(lib):
     lib.hb_sub_bcast_packed.argtypes = [vp, vp, vp, i64, i64, i64, i64, i64,
                                          vp]
     lib.hb_randousha_extract_pc.argtypes = [vp, vp, vp, vp, i32, i32, i32,
-                                            i32, i32, i32, i32, init, i32,
-                                            vp]
+                                            i32, i32, i32, init, vp]
     lib.hb_randousha_check.argtypes = [vp, vp, vp, vp, i32, i32, i64, i64,
                                        i32, i32, init, i32, vp]
     lib.hb_open_fused_k1.argtypes = [vp, vp, vp, i32, i32, i64, i32, init,
                                      vp]
+    lib.hb_open_fused_k2.argtypes = [vp, vp, vp, vp, i32, i32, i64, i32,
+                                     init, vp]
+    lib.hb_open_fused_k3.argtypes = [vp, vp, vp, vp, i32, i32, i64, i32, i32,
+                                     init, i32, vp]
     fused = (lib.hb_open_fused_k1, lib.hb_open_fused_k2,
              lib.hb_open_fused_k3)
-    for fn in fused[1:]:
-        fn.argtypes = [vp, vp, vp, vp, i32, i32, i64, i32, i32, init, i32,
-                       vp]
     for fn in (lib.hb_open_direct, lib.hb_band_matmul, lib.hb_rand_limbs,
                lib.hb_randousha_deal, lib.hb_randousha_extract,
                lib.hb_mul_add_packed4, lib.hb_sub_bcast_packed4,

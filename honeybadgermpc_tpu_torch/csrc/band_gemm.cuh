@@ -1,6 +1,9 @@
 // band_gemm: the Vandermonde band encode as one int8 GEMM per block, on
-// Hopper's wgmma and bulk async copies. Used by band_matmul_kernel
-// (band_matmul.cu) and K1 (open_fused.cu); the other band kernels keep
+// Hopper's wgmma and bulk async copies. Runs band_matmul_kernel
+// (band_matmul.cu), K1 and K2 of the three-kernel open (open_fused.cu) and
+// the per-column extraction (randousha_extract.cu); each brings its own
+// epilogue policy (below). The other band kernels (the direct open, the
+// deal, the aggregated extraction, K3 and the per-column check) keep
 // field_core.cuh's mma.sync core.
 //
 // The function (ops/fused_open.py's plain core): for each lane, k packed
@@ -54,7 +57,10 @@
 //              Montgomery step, which is the fold's two 16-bit REDC rounds
 //              (fold_words below; plain twin ops/band_gemm.py::
 //              _fold_reduce_words). The result words are the packed
-//              words: no pack step.
+//              words: no pack step. What a (lane, column) then does with
+//              them is the kernel's epilogue policy: a store (StoreEpi),
+//              a compare and count (K2), two stores (the per-column
+//              extraction).
 #pragma once
 
 #include "field_core.cuh"
@@ -87,13 +93,12 @@ static __device__ __constant__ uint32_t kP32[PL] = {
     0x00000001u, 0xFFFFFFFFu, 0xFFFE5BFEu, 0x53BDA402u,
     0x09A1D805u, 0x3339D808u, 0x299D7D48u, 0x73EDA753u};
 
-// Where a lane's operands and results live. Lane g = grp * C + c:
+// Where a lane's operands live. Lane g = grp * C + c:
 //   operand i, word w   src[w*sw + grp*sp + c*sc + i*si]
-//   column col, word w  out[w*ow + grp*op + c*oc + col*ocol]
+// The m result columns of a lane go to the kernel's epilogue policy.
 struct EncodeMap {
   long long nlanes, C;
   long long sw, sp, sc, si;
-  long long ow, op, oc, ocol;
   int k, m;
 };
 
@@ -285,6 +290,67 @@ __device__ __forceinline__ void fold_words(const uint32_t (&lo)[5],
 }
 
 // ---------------------------------------------------------------------------
+// Epilogue policies: what band_gemm_body does with the result words of one
+// (lane, column), the step after fold_words. A policy type has
+//
+//   Lane     its state of one lane, in registers: one per 64-lane block
+//            a thread serves, made by lane(mp, g, valid, grp, c)
+//   Fetch    what a column needs besides its result, loaded by fetch()
+//            ahead of its use: the first lane's before the tile's dot,
+//            each next lane's under the previous lane's fold
+//   apply    the step itself: store, compare and count, or nothing
+//   finish   after the thread's last tile; the thread is part `part` of
+//            the `parts` threads that serve its lane (one per consumer
+//            warpgroup and column of a tile)
+// ---------------------------------------------------------------------------
+
+struct NoFetch {};
+
+// Columns lo..hi-1, word w, of lane grp * C + c go to
+// out[w*ow + grp*op + c*oc + (col - lo)*ocol].
+struct Store {
+  uint32_t* out;
+  long long ow, op, oc, ocol;
+  int lo, hi;
+
+  __device__ __forceinline__ long long base(long long grp, long long c) const {
+    return grp * op + c * oc;
+  }
+  __device__ __forceinline__ void put(long long at, int col,
+                                      const uint32_t (&words)[PL]) const {
+    if (col >= lo && col < hi) {
+      uint32_t* o = out + at + static_cast<long long>(col - lo) * ocol;
+#pragma unroll
+      for (int w = 0; w < PL; ++w) o[w * ow] = words[w];
+    }
+  }
+};
+
+// Every column stored (band_matmul, K1).
+struct StoreEpi {
+  Store st;
+  struct Lane {
+    long long at;
+    bool valid;
+  };
+  using Fetch = NoFetch;
+
+  __device__ __forceinline__ Lane lane(const EncodeMap&, long long, bool valid,
+                                       long long grp, long long c) const {
+    return {st.base(grp, c), valid};
+  }
+  __device__ __forceinline__ void fetch(const EncodeMap&, const Lane&, int,
+                                        Fetch&) const {}
+  __device__ __forceinline__ void apply(const EncodeMap&, Lane& ln, int col,
+                                        const uint32_t (&words)[PL],
+                                        const Fetch&) const {
+    if (ln.valid) st.put(ln.at, col, words);
+  }
+  __device__ __forceinline__ void finish(const EncodeMap&, const Lane&, int,
+                                         int) const {}
+};
+
+// ---------------------------------------------------------------------------
 // The block
 // ---------------------------------------------------------------------------
 
@@ -344,11 +410,11 @@ __device__ __forceinline__ void build_planes(unsigned char* planes,
   }
 }
 
-template <int MB>
+template <int MB, class Epi>
 __device__ __forceinline__ void band_gemm_body(
     unsigned char* smem, const uint32_t* __restrict__ src,
-    const unsigned char* __restrict__ band, uint32_t* __restrict__ out,
-    const EncodeMap& mp, const WordFold& wf) {
+    const unsigned char* __restrict__ band, const EncodeMap& mp,
+    const WordFold& wf, const Epi& epi) {
   constexpr int TM = 64 * MB;
   constexpr int CONSUMERS = consumers(MB);
   constexpr int NSLOT = CONSUMERS * SLOTS;
@@ -372,11 +438,11 @@ __device__ __forceinline__ void band_gemm_body(
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  // Tile ct goes to consumer warpgroup ct % 2 through that warpgroup's own
-  // ring, fed by its own producer warp: KS k-steps per slot, the ring's
-  // steps in order. Every slot has one consumer, which waits for each of
-  // its phases in order. The first SLOTS loads of a ring need no release:
-  // they fly under the plane build.
+  // Tile ct goes to consumer warpgroup ct % CONSUMERS through that
+  // warpgroup's own ring, fed by its own producer warp: KS k-steps per
+  // slot, the ring's steps in order. Every slot has one consumer, which
+  // waits for each of its phases in order. The first SLOTS loads of a ring
+  // need no release: they fly under the plane build.
   auto issue = [&](int sr) {               // ring pr's load number sr
     const int ct = (sr / nst) * CONSUMERS + pr;
     const int kk0 = (sr % nst) * KS;
@@ -410,16 +476,15 @@ __device__ __forceinline__ void band_gemm_body(
   const int cl = tg >> 1;                  // column within the tile
   const uint32_t planes_s = smem_u32(planes);
 
-  // this thread's lanes (one per 64-lane block) and their output offsets
-  long long obase[MB];
-  bool valid[MB];
+  // this thread's lanes (one per 64-lane block) and the policy's state
+  typename Epi::Lane ln[MB];
 #pragma unroll
   for (int mb = 0; mb < MB; ++mb) {
     const long long lane = lane0 + 64 * mb + 16 * wl + g + 8 * hf;
-    valid[mb] = lane < mp.nlanes;
-    const long long grp = valid[mb] ? lane / mp.C : 0;
-    const long long c = valid[mb] ? lane - grp * mp.C : 0;
-    obase[mb] = grp * mp.op + c * mp.oc;
+    const bool valid = lane < mp.nlanes;
+    const long long grp = valid ? lane / mp.C : 0;
+    const long long c = valid ? lane - grp * mp.C : 0;
+    ln[mb] = epi.lane(mp, lane, valid, grp, c);
   }
 
   int acc[MB][32];
@@ -429,6 +494,14 @@ __device__ __forceinline__ void band_gemm_body(
     for (int i = 0; i < 32; ++i) acc[mb][i] = 0;
   int sr = 0;                              // this ring's load number
   for (int ct = wgi; ct < ntiles; ct += CONSUMERS) {
+    const int col = ct * NT + cl;
+    // what the column needs besides its result (K2's received words): the
+    // first lane's loads go out before the tile's dot, each next lane's
+    // once the previous lane is done, under its own fold. One lane's words
+    // in registers at a time: at 256 lanes the accumulators leave no room
+    // for two.
+    typename Epi::Fetch fx;
+    epi.fetch(mp, ln[0], col, fx);
     for (int kk = 0; kk < k; ++kk) {
       const int slot = wgi * SLOTS + sr % SLOTS;
       if (kk % KS == 0) mbar_wait(full_s + 8 * slot, (sr / SLOTS) & 1);
@@ -459,7 +532,7 @@ __device__ __forceinline__ void band_gemm_body(
     if (laneid == 0)
       mbar_arrive(empty_s + 8 * (wgi * SLOTS + (sr - 1) % SLOTS));
 
-    const int col = ct * NT + cl;
+    // the epilogue: fold, then the policy
 #pragma unroll
     for (int mb = 0; mb < MB; ++mb) {
       uint32_t pw0[5], pw1[5], lo[5], hi[5];
@@ -477,19 +550,21 @@ __device__ __forceinline__ void band_gemm_body(
       }
       uint32_t words[PL];
       fold_words(lo, hi, wf, words);
-      if (valid[mb] && col < mp.m) {
-        uint32_t* o = out + obase[mb] + static_cast<long long>(col) * mp.ocol;
-#pragma unroll
-        for (int w = 0; w < PL; ++w) o[w * mp.ow] = words[w];
-      }
+      epi.apply(mp, ln[mb], col, words, fx);
+      if (mb + 1 < MB) epi.fetch(mp, ln[mb + 1], col, fx);
     }
   }
+#pragma unroll
+  for (int mb = 0; mb < MB; ++mb)
+    epi.finish(mp, ln[mb], wgi * NT + cl, CONSUMERS * NT);
 }
 
-// Launch `kern` (a __global__ wrapper of band_gemm_body<MB>) on `stream`.
-template <int MB, typename Kernel>
-int launch(Kernel kern, const void* src, const void* band, void* out,
-           const EncodeMap& mp, const uint32_t* fold, void* stream) {
+// Launch `kern` (a __global__ wrapper of band_gemm_body<MB, Epi>) on
+// `stream`.
+template <int MB, typename Kernel, class Epi>
+int launch(Kernel kern, const void* src, const void* band,
+           const EncodeMap& mp, const Epi& epi, const uint32_t* fold,
+           void* stream) {
   WordFold wf;
   for (int j = 0; j < NW; ++j) wf.w[j] = fold[j];
   const size_t smem = smem_bytes(mp.k, MB);
@@ -501,8 +576,7 @@ int launch(Kernel kern, const void* src, const void* band, void* out,
       static_cast<unsigned>((mp.nlanes + 64 * MB - 1) / (64 * MB));
   kern<<<grid, threads(MB), smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(src),
-      static_cast<const unsigned char*>(band), static_cast<uint32_t*>(out),
-      mp, wf);
+      static_cast<const unsigned char*>(band), mp, wf, epi);
   return static_cast<int>(cudaGetLastError());
 }
 

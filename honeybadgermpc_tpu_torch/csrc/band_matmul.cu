@@ -35,10 +35,10 @@ template <int MB>
 __global__ void __launch_bounds__(gemm::threads(MB), 1)
     band_matmul_kernel(const uint32_t* __restrict__ a,
                        const unsigned char* __restrict__ band,
-                       uint32_t* __restrict__ out, gemm::EncodeMap mp,
-                       gemm::WordFold wf) {
+                       gemm::EncodeMap mp, gemm::WordFold wf,
+                       gemm::StoreEpi epi) {
   extern __shared__ __align__(128) unsigned char smem[];
-  gemm::band_gemm_body<MB>(smem, a, band, out, mp, wf);
+  gemm::band_gemm_body<MB>(smem, a, band, mp, wf, epi);
 }
 
 }  // namespace hb
@@ -49,17 +49,19 @@ extern "C" int hb_band_matmul(const void* a, const void* band, void* out,
                               long long B, int k, int m, int mb,
                               const uint32_t* fold, void* stream) {
   const long long bk = B * k, bm = B * m;
-  const hb::gemm::EncodeMap mp{B, B, bk, 0, k, 1, bm, 0, 1, B, k, m};
+  const hb::gemm::EncodeMap mp{B, B, bk, 0, k, 1, k, m};
+  const hb::gemm::StoreEpi epi{
+      {static_cast<uint32_t*>(out), bm, 0, 1, B, 0, m}};
   switch (mb) {
     case 4:
-      return hb::gemm::launch<4>(hb::band_matmul_kernel<4>, a, band, out,
-                                 mp, fold, stream);
+      return hb::gemm::launch<4>(hb::band_matmul_kernel<4>, a, band, mp, epi,
+                                 fold, stream);
     case 2:
-      return hb::gemm::launch<2>(hb::band_matmul_kernel<2>, a, band, out,
-                                 mp, fold, stream);
+      return hb::gemm::launch<2>(hb::band_matmul_kernel<2>, a, band, mp, epi,
+                                 fold, stream);
     case 1:
-      return hb::gemm::launch<1>(hb::band_matmul_kernel<1>, a, band, out,
-                                 mp, fold, stream);
+      return hb::gemm::launch<1>(hb::band_matmul_kernel<1>, a, band, mp, epi,
+                                 fold, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -43,24 +43,29 @@
 // ridge; the fold/REDC epilogue (CUDA cores, about 450 instructions per
 // lane and column) comes on top of the dot.
 //
-// K1 runs on band_gemm.cuh's core (wgmma, the band streamed through shared
-// memory, the epilogue straight from the accumulators): its lane map is
-// the one below with the chunk index c contiguous, its result a plain
-// store. K2, K3 and KC keep the direct open's design (csrc/open_direct.cu)
-// on field_core.cuh's mma.sync core: a block owns TL lanes and WG column
+// K1 and K2 run on band_gemm.cuh's core (wgmma, the band streamed through
+// shared memory, the epilogue straight from the accumulators), lane g =
+// grp * C + c with the chunk index c contiguous. K1's epilogue is a plain
+// store. K2's (K2Epi below) compares columns 0..nv-1 with the received
+// words, which it loads ahead of the fold, keeps each lane's mismatch
+// count in a register and adds it to errs[destination] with one atomicAdd
+// when it is not 0 (honest shares: no atomics); column nv is stored.
+//
+// K3 and KC keep the direct open's design (csrc/open_direct.cu) on
+// field_core.cuh's mma.sync core: a block owns TL lanes and WG column
 // slots; it builds its lanes' balanced digit planes once in shared memory;
 // every warp then walks its slot's columns with no block barrier: band
 // fragments from device memory one k-step ahead, mma.sync.m16n8k32.s8, a
 // per-warp transpose to one lane per thread, the fold/REDC epilogue in
-// registers, then a store or a compare. The stages differ only in how a
-// lane finds its k operands, what a column does with its result, and
-// where mismatches are charged:
+// registers, then a store or a compare. The two differ only in how a lane
+// finds its k operands, what a column does with its result, and where
+// mismatches are charged:
 //
 //   operand i, word w of lane g = src[w*sw + (g / C)*sp + i*si + g % C]
 //
 // Each thread keeps its mismatch count in a register and adds it to the
-// global counter with one atomicAdd at the end, when it is not 0 (honest
-// shares: no atomics). Integer adds: order-free.
+// global counter with one atomicAdd at the end, when it is not 0. Integer
+// adds: order-free.
 #include "band_gemm.cuh"
 
 namespace hb {
@@ -69,8 +74,8 @@ struct LaneMap {
   long long nlanes;   // lanes of the launch
   long long C;        // chunks per group of lanes
   long long sw;       // word-plane stride of src
-  long long sp;       // stride of one lane group (source, destination or
-                      // check column)
+  long long sp;       // stride of one lane group (a check column; 0 for
+                      // K3's one group)
   long long si;       // stride of one operand
 };
 
@@ -87,7 +92,7 @@ __device__ __forceinline__ void open_fused_body(
   const int lane = tid - slot * tl;        // lane within the block
   const long long g = static_cast<long long>(blockIdx.x) * tl + lane;
   const bool valid = g < m.nlanes;
-  const long long grp = valid ? g / m.C : 0;  // destination (K2)
+  const long long grp = valid ? g / m.C : 0;
   const long long c = valid ? g - grp * m.C : 0;
   const size_t base = static_cast<size_t>(grp * m.sp + c);
   const int nv = n - k;
@@ -115,7 +120,7 @@ __device__ __forceinline__ void open_fused_body(
   for (int col = slot; col < ncol; col += wg) {
     // the operand this column's prediction is checked against, if any
     int cmp = -1;
-    if ((STAGE == 2 || STAGE == 4) && col < nv) cmp = k + col;
+    if (STAGE == 4 && col < nv) cmp = k + col;
     if (STAGE == 3 && col >= k) cmp = col;
     uint32_t recv[PL];
 #pragma unroll
@@ -140,7 +145,7 @@ __device__ __forceinline__ void open_fused_body(
       continue;
     }
     size_t at, plane;
-    if (STAGE == 2 || STAGE == 4) {        // vals [PL, lanes]: lane g
+    if (STAGE == 4) {                      // vals [PL, lanes]: lane g
       at = static_cast<size_t>(g);
       plane = static_cast<size_t>(m.nlanes);
     } else {                               // sec [PL, k, C]
@@ -151,27 +156,80 @@ __device__ __forceinline__ void open_fused_body(
     for (int w = 0; w < PL; ++w) out[w * plane + at] = words[w];
   }
   // the column slots of a lane add into one count: integer adds, order-free
-  if (bad) atomicAdd(&errs[STAGE == 2 ? grp : (STAGE == 4 ? g : 0)], bad);
+  if (bad) atomicAdd(&errs[STAGE == 4 ? g : 0], bad);
 }
 
 template <int MB>
 __global__ void __launch_bounds__(gemm::threads(MB), 1)
     open_fused_k1_kernel(const uint32_t* __restrict__ src,
                          const unsigned char* __restrict__ band,
-                         uint32_t* __restrict__ out, gemm::EncodeMap mp,
-                         gemm::WordFold wf) {
+                         gemm::EncodeMap mp, gemm::WordFold wf,
+                         gemm::StoreEpi epi) {
   extern __shared__ __align__(128) unsigned char smem[];
-  gemm::band_gemm_body<MB>(smem, src, band, out, mp, wf);
+  gemm::band_gemm_body<MB>(smem, src, band, mp, wf, epi);
 }
 
-__global__ void open_fused_k2_kernel(const uint32_t* __restrict__ src,
-                                     const int4* __restrict__ band,
-                                     uint32_t* __restrict__ out,
-                                     int* __restrict__ errs, int n, int k,
-                                     LaneMap m, int tl, FoldConst fc) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  open_fused_body<2>(smem, src, band, out, errs, n, k, n - k + 1, m, tl,
-                     fc);
+// K2's epilogue on the core. Lane g = j * C + c (destination j), its
+// operands the first k sources' columns. Column col < nv predicts source
+// k + col's column: its received words (the operand map at i = k + col;
+// with sp = C and sc = 1 the lane's own offset is g) are fetched ahead
+// (band_gemm_body) and compared; the lane's mismatches add up in a
+// register and go to errs[j], the DESTINATION, in one atomicAdd per thread
+// when not 0. Column nv (lam0) is psi_j(0), stored to vals [PL, n * C] at
+// lane g. Column nv + 1 (the empty half of an odd last tile) does nothing.
+// The lane state is kept small: at 256 lanes a thread holds four.
+struct K2Epi {
+  uint32_t* vals;
+  int* errs;
+  const uint32_t* src;
+  int nv;
+  struct Lane {
+    long long g;
+    int bad;
+    bool valid;
+  };
+  struct Fetch {
+    uint32_t w[PL];
+  };
+
+  __device__ __forceinline__ Lane lane(const gemm::EncodeMap&, long long g,
+                                       bool valid, long long,
+                                       long long) const {
+    return {g, 0, valid};
+  }
+  __device__ __forceinline__ void fetch(const gemm::EncodeMap& mp,
+                                        const Lane& ln, int col,
+                                        Fetch& f) const {
+    const bool cmp = ln.valid && col < nv;
+    const uint32_t* p =
+        src + ln.g + static_cast<long long>(mp.k + col) * mp.si;
+#pragma unroll
+    for (int w = 0; w < PL; ++w) f.w[w] = cmp ? __ldg(p + w * mp.sw) : 0u;
+  }
+  __device__ __forceinline__ void apply(const gemm::EncodeMap& mp, Lane& ln,
+                                        int col, const uint32_t (&words)[PL],
+                                        const Fetch& f) const {
+    if (!ln.valid) return;
+    if (col < nv) {
+      ln.bad += mismatch(words, f.w) ? 1 : 0;
+    } else if (col == nv) {
+#pragma unroll
+      for (int w = 0; w < PL; ++w) vals[w * mp.nlanes + ln.g] = words[w];
+    }
+  }
+  __device__ __forceinline__ void finish(const gemm::EncodeMap& mp,
+                                         const Lane& ln, int, int) const {
+    if (ln.bad) atomicAdd(&errs[ln.g / mp.C], ln.bad);
+  }
+};
+
+template <int MB>
+__global__ void __launch_bounds__(gemm::threads(MB), 1)
+    open_fused_k2_kernel(const uint32_t* __restrict__ src,
+                         const unsigned char* __restrict__ band,
+                         gemm::EncodeMap mp, gemm::WordFold wf, K2Epi epi) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  gemm::band_gemm_body<MB>(smem, src, band, mp, wf, epi);
 }
 
 __global__ void open_fused_k3_kernel(const uint32_t* __restrict__ src,
@@ -217,40 +275,50 @@ extern "C" int hb_open_fused_k1(const void* src, const void* band, void* out,
                                 int n, int k, long long C, int mb,
                                 const uint32_t* fold, void* stream) {
   const long long nl = static_cast<long long>(n);
-  const hb::gemm::EncodeMap mp{nl * C, C, nl * k * C, k * C, 1, C,
-                               nl * nl * C, nl * C, 1, C, k, n};
+  const hb::gemm::EncodeMap mp{nl * C, C, nl * k * C, k * C, 1, C, k, n};
+  const hb::gemm::StoreEpi epi{
+      {static_cast<uint32_t*>(out), nl * nl * C, nl * C, 1, C, 0, n}};
   switch (mb) {
     case 4:
-      return hb::gemm::launch<4>(hb::open_fused_k1_kernel<4>, src, band, out,
-                                 mp, fold, stream);
+      return hb::gemm::launch<4>(hb::open_fused_k1_kernel<4>, src, band, mp,
+                                 epi, fold, stream);
     case 2:
-      return hb::gemm::launch<2>(hb::open_fused_k1_kernel<2>, src, band, out,
-                                 mp, fold, stream);
+      return hb::gemm::launch<2>(hb::open_fused_k1_kernel<2>, src, band, mp,
+                                 epi, fold, stream);
     case 1:
-      return hb::gemm::launch<1>(hb::open_fused_k1_kernel<1>, src, band, out,
-                                 mp, fold, stream);
+      return hb::gemm::launch<1>(hb::open_fused_k1_kernel<1>, src, band, mp,
+                                 epi, fold, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// src: cols [PL, n_src, n_dst, C]; band: K2's band in band_gemm tiles
+// (nv + 1 columns); out: vals [PL, n, C]; errs: int32 [n], zeroed by the
+// caller; mb, fold as for K1.
 extern "C" int hb_open_fused_k2(const void* src, const void* band, void* out,
-                                void* errs, int n, int k, long long C,
-                                int tl, int wg, const uint32_t* init,
-                                int bias, void* stream) {
-  const hb::LaneMap m{static_cast<long long>(n) * C, C,
-                      static_cast<long long>(n) * n * C, C,
-                      static_cast<long long>(n) * C};
-  size_t smem = 0;
-  const int rc = hb::prepare(hb::open_fused_k2_kernel, k, tl, wg, &smem);
-  if (rc != 0) return rc;
-  const unsigned grid = static_cast<unsigned>((m.nlanes + tl - 1) / tl);
-  hb::open_fused_k2_kernel<<<grid, tl * wg, smem,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(src), static_cast<const int4*>(band),
-      static_cast<uint32_t*>(out), static_cast<int*>(errs), n, k, m, tl,
-      hb::fold_const(init, bias));
-  return static_cast<int>(cudaGetLastError());
+                                void* errs, int n, int k, long long C, int mb,
+                                const uint32_t* fold, void* stream) {
+  const long long nl = static_cast<long long>(n);
+  const int nv = n - k;
+  // lane j * C + c: operand i at src[w*n*n*C + i*n*C + j*C + c]
+  const hb::gemm::EncodeMap mp{nl * C, C, nl * nl * C, C, 1, nl * C, k,
+                               nv + 1};
+  const hb::K2Epi epi{static_cast<uint32_t*>(out), static_cast<int*>(errs),
+                      static_cast<const uint32_t*>(src), nv};
+  switch (mb) {
+    case 4:
+      return hb::gemm::launch<4>(hb::open_fused_k2_kernel<4>, src, band, mp,
+                                 epi, fold, stream);
+    case 2:
+      return hb::gemm::launch<2>(hb::open_fused_k2_kernel<2>, src, band, mp,
+                                 epi, fold, stream);
+    case 1:
+      return hb::gemm::launch<1>(hb::open_fused_k2_kernel<1>, src, band, mp,
+                                 epi, fold, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int hb_open_fused_k3(const void* src, const void* band, void* out,

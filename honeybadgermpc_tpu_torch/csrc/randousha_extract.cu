@@ -19,9 +19,12 @@
 //       columns ncheck .. ncheckp-1 are written as zero.
 //
 //   cols  uint32 [PL, n, n, sp]        receive tensor [word, dst, src, slot]
-//   band  int4   [ncp, n, 2, 32]       column, k-step (= source), m-tile,
+//   band  agg: int4 [ncp, n, 2, 32]    column, k-step (= source), m-tile,
 //                                      thread (ops/fused_open.py::
-//                                      _kernel_band), built on the device
+//                                      _kernel_band), built on the device;
+//         per-column: int8 [n/2, n, 2048]  band_gemm tiles (ops/
+//                                      band_gemm.py::_gemm_band), re-laid
+//                                      on the device
 //   keep  uint32 [PL, n, n_outp, sp]   agg: rows < n_out extracted sharings,
 //                                      row n_out the check sharing, rows
 //                                      above it zero sharings (zero band
@@ -35,25 +38,30 @@
 // ncheckp) written; the fold/REDC epilogue on the CUDA cores comes on top
 // of the dot.
 //
-// Design: the shape of open_direct.cu at contraction length n. The digit
-// planes of a lane take 32n bytes (2 KB at n = 64), so a block holds 32 or
-// 64 lanes and 16 or 8 column slots. Thread (slot, lane) builds the planes
-// of sources slot, slot+WG, ... (a warp reads 32 neighbouring slots of one
-// source row); after one barrier every warp walks its slot's columns on its
-// own and stores 8 words per lane and column, neighbouring lanes to
-// neighbouring addresses. The two modes share that body and differ only in
-// which columns have a dot and where a column's words go. Offsets pass
-// 2^31 bytes: size_t throughout.
-#include "field_core.cuh"
+// The per-column mode runs on band_gemm.cuh's core (wgmma, the band in
+// 2 KB tiles streamed through shared memory, the epilogue straight from
+// the accumulators): lane g = dst * sp + sl, its n operands the sources'
+// words of that slot; ExtractPcEpi below stores each column to keep
+// and/or chk, both lane-contiguous in sl, and writes the zero check rows.
+// At n = 64 the planes leave room for 64-lane blocks only.
+//
+// The aggregate mode keeps the shape of open_direct.cu on field_core.cuh's
+// mma.sync core, at contraction length n. The digit planes of a lane take
+// 32n bytes (2 KB at n = 64), so a block holds 32 or 64 lanes and 16 or 8
+// column slots. Thread (slot, lane) builds the planes of sources slot,
+// slot+WG, ... (a warp reads 32 neighbouring slots of one source row);
+// after one barrier every warp walks its slot's columns on its own and
+// stores 8 words per lane and column, neighbouring lanes to neighbouring
+// addresses. Offsets pass 2^31 bytes: size_t throughout.
+#include "band_gemm.cuh"
 
 namespace hb {
 
-template <bool PC>
 __device__ __forceinline__ void extract_body(
     unsigned char* smem, const uint32_t* __restrict__ cols,
     const int4* __restrict__ band, uint32_t* __restrict__ keep,
-    uint32_t* __restrict__ out2, int n, int sp, int n_out, int n_outp,
-    int ncheckp, int tl, const FoldConst& fc) {
+    uint32_t* __restrict__ z, int n, int sp, int n_out, int n_outp, int tl,
+    const FoldConst& fc) {
   const int wg = blockDim.x / tl;
   const int tid = threadIdx.x;
   const int laneid = tid & 31;
@@ -84,12 +92,9 @@ __device__ __forceinline__ void extract_body(
   __syncthreads();                         // planes are ready
 
   // no block barrier below: each warp walks its slot's columns on its own.
-  // agg: columns 0..n_out have a dot; per-column: columns 0..n-1, and
-  // columns n..n_out+ncheckp-1 are the zero padding of the check tensor.
-  const int ndot = PC ? n : n_out + 1;
-  int ncols = PC ? n_out + ncheckp : n_out + 1;
-  if (ncols < n_outp) ncols = n_outp;
-  if (PC && ncols < n) ncols = n;
+  // Columns 0..n_out have a dot; the keep rows above are zero sharings.
+  const int ndot = n_out + 1;
+  const int ncols = n_outp > ndot ? n_outp : ndot;
   for (int col = slot; col < ncols; col += wg) {
     uint32_t words[PL];
     if (col < ndot) {                      // warp-uniform
@@ -112,17 +117,10 @@ __device__ __forceinline__ void extract_body(
         keep[((static_cast<size_t>(w) * n + dst) * n_outp + col) * sp + sl] =
             words[w];
     }
-    if (PC && col >= n_out && col - n_out < ncheckp) {
-      const int c = col - n_out;
+    if (col == n_out) {
 #pragma unroll
       for (int w = 0; w < PL; ++w)
-        out2[((static_cast<size_t>(w) * n + dst) * ncheckp + c) * sp + sl] =
-            words[w];
-    }
-    if (!PC && col == n_out) {
-#pragma unroll
-      for (int w = 0; w < PL; ++w)
-        out2[(static_cast<size_t>(w) * n + dst) * sp + sl] = words[w];
+        z[(static_cast<size_t>(w) * n + dst) * sp + sl] = words[w];
     }
   }
 }
@@ -134,20 +132,58 @@ __global__ void randousha_extract_kernel(const uint32_t* __restrict__ cols,
                                          int sp, int n_out, int n_outp,
                                          int tl, FoldConst fc) {
   extern __shared__ __align__(16) unsigned char smem[];
-  extract_body<false>(smem, cols, band, keep, z, n, sp, n_out, n_outp, 0, tl,
-                      fc);
+  extract_body(smem, cols, band, keep, z, n, sp, n_out, n_outp, tl, fc);
 }
 
-__global__ void randousha_extract_pc_kernel(const uint32_t* __restrict__ cols,
-                                            const int4* __restrict__ band,
-                                            uint32_t* __restrict__ keep,
-                                            uint32_t* __restrict__ chk, int n,
-                                            int sp, int n_out, int n_outp,
-                                            int ncheckp, int tl,
-                                            FoldConst fc) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  extract_body<true>(smem, cols, band, keep, chk, n, sp, n_out, n_outp,
-                     ncheckp, tl, fc);
+// The per-column extraction's epilogue on the core: column col goes to
+// keep [PL, n, n_outp, sp] when col < n_outp and to chk [PL, n, ncheckp,
+// sp] at row col - n_out when n_out <= col < n (columns n_out..n_outp-1
+// go to both). Check rows ncheck..ncheckp-1 are no column of the dot (a
+// zero band column would leave the fold constant, not 0): the threads of a
+// lane write them zero between them in finish().
+struct ExtractPcEpi {
+  gemm::Store keep, chk;
+  int ncheck, ncheckp;
+  struct Lane {
+    long long kat, cat;   // the lane's offsets in keep and chk
+    bool valid;
+  };
+  using Fetch = gemm::NoFetch;
+
+  __device__ __forceinline__ Lane lane(const gemm::EncodeMap&, long long,
+                                       bool valid, long long grp,
+                                       long long c) const {
+    return {keep.base(grp, c), chk.base(grp, c), valid};
+  }
+  __device__ __forceinline__ void fetch(const gemm::EncodeMap&, const Lane&,
+                                        int, Fetch&) const {}
+  __device__ __forceinline__ void apply(const gemm::EncodeMap&, Lane& ln,
+                                        int col, const uint32_t (&words)[PL],
+                                        const Fetch&) const {
+    if (!ln.valid) return;
+    keep.put(ln.kat, col, words);
+    chk.put(ln.cat, col, words);
+  }
+  __device__ __forceinline__ void finish(const gemm::EncodeMap&,
+                                         const Lane& ln, int part,
+                                         int parts) const {
+    if (!ln.valid) return;
+    for (int r = ncheck + part; r < ncheckp; r += parts) {
+      uint32_t* o = chk.out + ln.cat + static_cast<long long>(r) * chk.ocol;
+#pragma unroll
+      for (int w = 0; w < PL; ++w) o[w * chk.ow] = 0u;
+    }
+  }
+};
+
+template <int MB>
+__global__ void __launch_bounds__(gemm::threads(MB), 1)
+    randousha_extract_pc_kernel(const uint32_t* __restrict__ cols,
+                                const unsigned char* __restrict__ band,
+                                gemm::EncodeMap mp, gemm::WordFold wf,
+                                ExtractPcEpi epi) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  gemm::band_gemm_body<MB>(smem, cols, band, mp, wf, epi);
 }
 
 // Dynamic shared memory of a launch, allowed above 48 KB for `kernel`.
@@ -187,21 +223,36 @@ extern "C" int hb_randousha_extract(const void* cols, const void* band,
   return static_cast<int>(cudaGetLastError());
 }
 
+// cols [PL, n, n, sp]; band: the n-point encode band in band_gemm tiles
+// (n columns); keep [PL, n, n_outp, sp]; chk [PL, n, ncheckp, sp]; mb:
+// 64-lane blocks per thread block (ops/band_gemm.py::_gemm_plan); fold:
+// _word_fold_consts(n).
 extern "C" int hb_randousha_extract_pc(const void* cols, const void* band,
                                        void* keep, void* chk, int n, int sp,
                                        int n_out, int n_outp, int ncheckp,
-                                       int tl, int wg, const uint32_t* init,
-                                       int bias, void* stream) {
-  size_t smem = 0;
-  const int rc =
-      hb::prepare_extract(hb::randousha_extract_pc_kernel, n, tl, wg, &smem);
-  if (rc != 0) return rc;
-  const long long B = static_cast<long long>(n) * sp;
-  const unsigned grid = static_cast<unsigned>((B + tl - 1) / tl);
-  hb::randousha_extract_pc_kernel<<<grid, tl * wg, smem,
-                                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(cols), static_cast<const int4*>(band),
-      static_cast<uint32_t*>(keep), static_cast<uint32_t*>(chk), n, sp,
-      n_out, n_outp, ncheckp, tl, hb::extract_fold_const(init, bias));
-  return static_cast<int>(cudaGetLastError());
+                                       int mb, const uint32_t* fold,
+                                       void* stream) {
+  const long long nl = static_cast<long long>(n), s = sp;
+  // lane dst * sp + sl: operand (source) i at cols[((w*n + dst)*n + i)*sp
+  // + sl]
+  const hb::gemm::EncodeMap mp{nl * s, s, nl * nl * s, nl * s, 1, s, n, n};
+  const hb::ExtractPcEpi epi{
+      {static_cast<uint32_t*>(keep), nl * n_outp * s, n_outp * s, 1, s, 0,
+       n_outp},
+      {static_cast<uint32_t*>(chk), nl * ncheckp * s, ncheckp * s, 1, s,
+       n_out, n},
+      n - n_out, ncheckp};
+  switch (mb) {
+    case 4:
+      return hb::gemm::launch<4>(hb::randousha_extract_pc_kernel<4>, cols,
+                                 band, mp, epi, fold, stream);
+    case 2:
+      return hb::gemm::launch<2>(hb::randousha_extract_pc_kernel<2>, cols,
+                                 band, mp, epi, fold, stream);
+    case 1:
+      return hb::gemm::launch<1>(hb::randousha_extract_pc_kernel<1>, cols,
+                                 band, mp, epi, fold, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,11 +1,14 @@
 """Host side of the Hopper band-encode core (``csrc/band_gemm.cuh``).
 
-The band matmul (``ops/band_matmul.py``) and K1 of the three-kernel open
-(``ops/fused_open.py``) run on one int8 GEMM core: per block, the lanes'
-balanced digit planes [lanes, 32k] against the folded band [32k, 32 cols]
-through ``wgmma.m64n64k32.s8``, the band streamed through shared memory in
-2 KB tiles, the fold straight from the accumulators. This module holds what
-the host does for it (the band's tile layout, the launch plan, the fold
+The band matmul (``ops/band_matmul.py``), K1 and K2 of the three-kernel
+open (``ops/fused_open.py``) and the per-column extraction
+(``ops/fused_randousha.py``) run on one int8 GEMM core: per block, the
+lanes' balanced digit planes [lanes, 32k] against the folded band [32k, 32
+cols] through ``wgmma.m64n64k32.s8``, the band streamed through shared
+memory in 2 KB tiles, the fold straight from the accumulators, then the
+kernel's own epilogue policy (a store, K2's compare and count, the
+extraction's two stores). This module holds what the host does for it
+(the band's tile layout and its device re-lay, the launch plan, the fold
 constants) and plain twins of the layouts and of the epilogue, which the
 CPU tests hold against the reference.
 
@@ -98,6 +101,31 @@ def _gemm_band(band: np.ndarray, ncp: int, k: int, m: int) -> np.ndarray:
     t = t.reshape(ntiles, 8, 8, 2, 16, k)       # ct, ng, r8, kc, byte, kk
     return np.ascontiguousarray(t.transpose(0, 5, 3, 1, 2, 4)).reshape(
         ntiles, k, STEP_BYTES)
+
+
+def _relay_index(relay, nrows: int, rowlen: int) -> np.ndarray:
+    """int64 array of relay's output shape: for every byte that `relay` (a
+    pure permutation of the bytes of an int8 band [nrows, rowlen] into a
+    kernel layout) puts out, its position in the flat band. So a band that
+    only exists on the device is re-laid there with one gather. Found by
+    sending the positions themselves through `relay`, one base-256 digit at
+    a time."""
+    size = nrows * rowlen
+    assert size <= 1 << 24, size
+    pos = np.arange(size, dtype=np.int64).reshape(nrows, rowlen)
+    idx = 0
+    for d in range(3):
+        digit = ((pos >> (8 * d)) & 0xFF).astype(np.uint8).view(np.int8)
+        idx = idx + (relay(digit).view(np.uint8).astype(np.int64) << (8 * d))
+    return idx
+
+
+@functools.lru_cache(maxsize=None)
+def _gemm_band_index(ncp: int, k: int, m: int, rowlen: int) -> np.ndarray:
+    """int64 [ceil(m/2), k, 2048]: the gather index that re-lays a flat
+    reference band [NBAL*ncp, rowlen] into `_gemm_band`'s tiles."""
+    return _relay_index(lambda b: _gemm_band(b, ncp, k, m), NBAL * ncp,
+                        rowlen)
 
 
 def _desc_walk(image: np.ndarray, start: int, lbo: int, sbo: int,

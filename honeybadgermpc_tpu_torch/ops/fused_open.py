@@ -37,7 +37,7 @@ import functools
 import numpy as np
 import torch
 
-from .band_gemm import _fold_array, _gemm_band, _gemm_plan
+from .band_gemm import _fold_array, _gemm_band, _gemm_plan, _relay_index
 from .limbs import L, MASK, N0, P, P_LIMBS, W
 
 TB = 128            # chunk tile of the reference's layouts (kept for parity)
@@ -220,17 +220,8 @@ def _kernel_band_index(ncp: int, k: int, rowlen: int) -> np.ndarray:
     output its position in a flat reference band [NBAL*ncp, rowlen]. The
     permutation is a property of the layout alone, so a band that only
     exists on the device (the per-run folded extraction band) is re-laid
-    there with one gather through this index. Found by sending the
-    positions themselves through `_kernel_band`, one base-256 digit at a
-    time."""
-    size = NBAL * ncp * rowlen
-    assert size <= 1 << 24, size
-    pos = np.arange(size, dtype=np.int64).reshape(NBAL * ncp, rowlen)
-    idx = np.zeros((ncp, k, 2, 32, 16), np.int64)
-    for d in range(3):
-        digit = ((pos >> (8 * d)) & 0xFF).astype(np.uint8).view(np.int8)
-        moved = _kernel_band(digit, ncp, k).view(np.uint8)
-        idx += moved.astype(np.int64) << (8 * d)
+    there with one gather through this index (band_gemm._relay_index)."""
+    idx = _relay_index(lambda b: _kernel_band(b, ncp, k), NBAL * ncp, rowlen)
     return idx.reshape(ncp, k, 2, 32, 4, 4)
 
 
@@ -449,25 +440,37 @@ _PLAIN_LANES = 1 << 15     # lanes per step of the plain versions
 
 
 @functools.lru_cache(maxsize=None)
+def _open_kernel_bands(points: tuple, k: int):
+    """The kernel layouts of the three bands (numpy), per stage (mma.sync
+    fragments or None, band_gemm tiles or None), each cut to the columns
+    its kernel walks: K1 and K2 run on band_gemm's core (``_gemm_band``),
+    K3 on the mma.sync core (``_kernel_band``). K2's band also serves the
+    per-column check (ops/fused_randousha.py), which stays on the mma.sync
+    core: K2's stage carries both layouts."""
+    n = len(points)
+    nv = n - k
+    (enc, n1), (r1, n2), (r2, n3), _, _ = _bands_np(points, k)
+    return ((None, _gemm_band(enc[0], n1, k, n)),
+            (np.ascontiguousarray(_kernel_band(r1[0], n2, k)[:nv + 1]),
+             _gemm_band(r1[0], n2, k, nv + 1)),
+            (np.ascontiguousarray(_kernel_band(r2[0], n3, k)[:n]), None))
+
+
+@functools.lru_cache(maxsize=None)
 def _open_bands(points: tuple, k: int, device: torch.device):
     """The three bands on `device`: ((reference-layout band [NBAL*ncp,
-    kcols] int8, ncp, kernel-layout band or None), ...) for K1, K2, K3,
-    plus the fold constants. The kernel layouts exist for CUDA devices
-    only, cut to the columns each kernel walks: K1's in band_gemm's tiles
-    (``_gemm_band``), K2's and K3's in mma.sync fragments
-    (``_kernel_band``)."""
-    n = len(points)
+    kcols] int8, ncp, fragment band or None, tile band or None), ...) for
+    K1, K2, K3, plus the fold constants. The kernel layouts
+    (``_open_kernel_bands``) exist for CUDA devices only."""
     enc, r1, r2, _, _ = _bands_np(points, k)
-    ncols = (n, n - k + 1, n)
+    kern = _open_kernel_bands(points, k) if device.type == "cuda" else \
+        ((None, None),) * 3
     out = []
-    for stage, ((band, ncp), ncol) in enumerate(zip((enc, r1, r2), ncols)):
+    for (band, ncp), layouts in zip((enc, r1, r2), kern):
         ref = torch.from_numpy(np.ascontiguousarray(band[0])).to(device)
-        kern = None
-        if device.type == "cuda":
-            kern = (_gemm_band(band[0], ncp, k, ncol) if stage == 0 else
-                    np.ascontiguousarray(_kernel_band(band[0], ncp, k)[:ncol]))
-            kern = torch.from_numpy(kern).to(device)
-        out.append((ref, ncp, kern))
+        out.append((ref, ncp, *(None if x is None else
+                                torch.from_numpy(x).to(device)
+                                for x in layouts)))
     return tuple(out), _bal_fold_init(k), _bal_bias(k)
 
 
@@ -482,7 +485,8 @@ def _k1_plain(view, points: tuple):
     int32 [PL, n_src, n_dst, C]."""
     _count_plain(view)
     _, n, k, C = view.shape
-    ((band, ncp, _), _, _), init, bias = _open_bands(points, k, view.device)
+    ((band, ncp, _, _), _, _), init, bias = _open_bands(points, k,
+                                                        view.device)
     cols = torch.empty((PL, n, n, C), dtype=torch.int32, device=view.device)
     for p in range(n):
         for c0 in range(0, C, _PLAIN_LANES):
@@ -501,7 +505,8 @@ def _r1_lanes_plain(lanes, points: tuple, k: int):
     per-column check's (ops/fused_randousha.py)."""
     _, n, nl = lanes.shape
     nv = n - k
-    (_, (band, ncp, _), _), init, bias = _open_bands(points, k, lanes.device)
+    (_, (band, ncp, _, _), _), init, bias = _open_bands(points, k,
+                                                        lanes.device)
     vals = torch.empty((PL, nl), dtype=torch.int32, device=lanes.device)
     bad = torch.empty((nl,), dtype=torch.int32, device=lanes.device)
     for l0 in range(0, nl, _PLAIN_LANES):
@@ -529,7 +534,8 @@ def _k3_plain(vals, points: tuple, k: int):
     _count_plain(vals)
     _, n, C = vals.shape
     nv = n - k
-    (_, _, (band, ncp, _)), init, bias = _open_bands(points, k, vals.device)
+    (_, _, (band, ncp, _, _)), init, bias = _open_bands(points, k,
+                                                        vals.device)
     sec = torch.empty((PL, k, C), dtype=torch.int32, device=vals.device)
     bad = torch.zeros((1,), dtype=torch.int64, device=vals.device)
     for c0 in range(0, C, _PLAIN_LANES):
@@ -541,19 +547,25 @@ def _k3_plain(vals, points: tuple, k: int):
     return sec, bad.to(torch.int32)
 
 
+def _gemm_args(k: int, nlanes: int, device):
+    """(64-lane blocks per thread block, fold constants) of a launch on
+    csrc/band_gemm.cuh with k operands per lane."""
+    nsm = torch.cuda.get_device_properties(device).multi_processor_count
+    return (_gemm_plan(k, nlanes, nsm),
+            _fold_array(_bal_fold_init(k), _bal_bias(k)))
+
+
 def _open_k1_cuda(view, points: tuple):
     """Launch K1 of csrc/open_fused.cu (on csrc/band_gemm.cuh) on view
     (CUDA) -> cols int32 [PL, n_src, n_dst, C]."""
     global launches_k1
     from .._build import lib
     _, n, k, C = view.shape
-    kern = _open_bands(points, k, view.device)[0][0][2]
-    nsm = torch.cuda.get_device_properties(view.device).multi_processor_count
+    tiles = _open_bands(points, k, view.device)[0][0][3]
     out = torch.empty((PL, n, n, C), dtype=torch.int32, device=view.device)
     rc = lib().hb_open_fused_k1(
-        view.data_ptr(), kern.data_ptr(), out.data_ptr(), n, k, C,
-        _gemm_plan(k, n * C, nsm),
-        _fold_array(_bal_fold_init(k), _bal_bias(k)), _launch_stream(view))
+        view.data_ptr(), tiles.data_ptr(), out.data_ptr(), n, k, C,
+        *_gemm_args(k, n * C, view.device), _launch_stream(view))
     launches_k1 += 1
     if rc != 0:
         raise RuntimeError(
@@ -561,30 +573,45 @@ def _open_k1_cuda(view, points: tuple):
     return out
 
 
-def _open_fused_cuda(stage: int, src, points: tuple, k: int, out_shape,
-                     errs_len: int):
-    """Launch stage `stage` (2, 3) of csrc/open_fused.cu on src (CUDA)
-    -> (out int32 `out_shape`, errs int32 [errs_len])."""
-    global launches_k2, launches_k3
+def _open_k2_cuda(cols, points: tuple, k: int):
+    """Launch K2 of csrc/open_fused.cu (on csrc/band_gemm.cuh) on cols
+    (CUDA) -> (vals int32 [PL, n, C], errs int32 [n])."""
+    global launches_k2
     from .._build import lib
-    n = len(points)
-    kern = _open_bands(points, k, src.device)[0][stage - 1][2]
-    tl, wg = _smem_plan(k)
-    init, bias = _fold_consts(k)
-    C = src.shape[-1]
-    out = torch.empty(out_shape, dtype=torch.int32, device=src.device)
-    errs = torch.zeros(errs_len, dtype=torch.int32, device=src.device)
-    fn = lib().hb_open_fused_k2 if stage == 2 else lib().hb_open_fused_k3
-    rc = fn(src.data_ptr(), kern.data_ptr(), out.data_ptr(),
-            errs.data_ptr(), n, k, C, tl, wg, init, bias, _launch_stream(src))
-    if stage == 2:
-        launches_k2 += 1
-    else:
-        launches_k3 += 1
+    _, n, _, C = cols.shape
+    tiles = _open_bands(points, k, cols.device)[0][1][3]
+    vals = torch.empty((PL, n, C), dtype=torch.int32, device=cols.device)
+    errs = torch.zeros(n, dtype=torch.int32, device=cols.device)
+    rc = lib().hb_open_fused_k2(
+        cols.data_ptr(), tiles.data_ptr(), vals.data_ptr(), errs.data_ptr(),
+        n, k, C, *_gemm_args(k, n * C, cols.device), _launch_stream(cols))
+    launches_k2 += 1
     if rc != 0:
         raise RuntimeError(
-            f"open_fused K{stage} kernel launch failed: CUDA error {rc}")
-    return out, errs
+            f"open_fused K2 kernel launch failed: CUDA error {rc}")
+    return vals, errs
+
+
+def _open_k3_cuda(vals, points: tuple, k: int):
+    """Launch K3 of csrc/open_fused.cu (the mma.sync core) on vals (CUDA)
+    -> (secrets int32 [PL, k, C], errs int32 [1])."""
+    global launches_k3
+    from .._build import lib
+    n = len(points)
+    kern = _open_bands(points, k, vals.device)[0][2][2]
+    tl, wg = _smem_plan(k)
+    init, bias = _fold_consts(k)
+    C = vals.shape[-1]
+    sec = torch.empty((PL, k, C), dtype=torch.int32, device=vals.device)
+    errs = torch.zeros(1, dtype=torch.int32, device=vals.device)
+    rc = lib().hb_open_fused_k3(vals.data_ptr(), kern.data_ptr(),
+                                sec.data_ptr(), errs.data_ptr(), n, k, C, tl,
+                                wg, init, bias, _launch_stream(vals))
+    launches_k3 += 1
+    if rc != 0:
+        raise RuntimeError(
+            f"open_fused K3 kernel launch failed: CUDA error {rc}")
+    return sec, errs
 
 
 def _check_stage_input(x, name: str, dims: int):
@@ -609,9 +636,8 @@ def open_k2(cols, points: tuple, k: int):
     """K2, R1 decode and validate: cols int32 [PL, n_src, n_dst, C] ->
     (vals int32 [PL, n, C], errs int32 [n] charged to the destination)."""
     _check_stage_input(cols, "cols", 4)
-    _, n, _, C = cols.shape
     if cols.is_cuda:
-        return _open_fused_cuda(2, cols, points, k, (PL, n, C), n)
+        return _open_k2_cuda(cols, points, k)
     return _k2_plain(cols, points, k)
 
 
@@ -619,9 +645,8 @@ def open_k3(vals, points: tuple, k: int):
     """K3, R2 decode and validate: vals int32 [PL, n, C] -> (secrets int32
     [PL, k, C], errs int32 [1], the count every destination is charged)."""
     _check_stage_input(vals, "vals", 3)
-    C = vals.shape[-1]
     if vals.is_cuda:
-        return _open_fused_cuda(3, vals, points, k, (PL, k, C), 1)
+        return _open_k3_cuda(vals, points, k)
     return _k3_plain(vals, points, k)
 
 

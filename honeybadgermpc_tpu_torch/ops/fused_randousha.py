@@ -49,7 +49,8 @@ s at index c*k + s). The per-column check tensor is int32
 ``[nblk, njt, PL, JT, ncheckp, TBW]``).
 
 On CUDA tensors deal, extract (both modes) and check are the hand-written
-kernels ``csrc/randousha_deal.cu``, ``csrc/randousha_extract.cu`` and
+kernels ``csrc/randousha_deal.cu``, ``csrc/randousha_extract.cu`` (the
+per-column mode on the wgmma core ``csrc/band_gemm.cuh``) and
 ``csrc/open_fused.cu::randousha_check_kernel``; ``_randousha_deal_plain``,
 ``_randousha_extract_plain`` and ``_randousha_check_plain`` are their plain
 PyTorch versions, used on the CPU and as the yardstick the kernels are held
@@ -59,18 +60,21 @@ against bit for bit.
 from __future__ import annotations
 
 import functools
+import weakref
 
 import numpy as np
 import torch
 
 from . import montgomery as mont
 from .field_kernels import _key_ints, _threefry_redc384
+from .band_gemm import _gemm_band_index
 from .fused_open import (KMAX, NBAL, PL, _BAL_ROUNDS, _bal_bias,
                          _bal_fold_init, _band_dot_fold, _encode_band_np,
-                         _fold_consts, _folded_band_host, _kernel_band,
-                         _kernel_band_index, _launch_stream, _open_bands,
-                         _pack16, _pad_band, _planes_of, _planes_of_packed,
-                         _r1_lanes_plain, _round8, _smem_plan)
+                         _fold_consts, _folded_band_host, _gemm_args,
+                         _kernel_band, _kernel_band_index, _launch_stream,
+                         _open_bands, _pack16, _pad_band, _planes_of,
+                         _planes_of_packed, _r1_lanes_plain, _round8,
+                         _smem_plan)
 from .limbs import P, W, ints_to_limbs
 
 JT = 8                  # party-count granule of the reference's layouts
@@ -275,31 +279,53 @@ def _extract_launcher(n: int, n_out: int, n_outp: int, ncp: int, kcn: int,
                       ncheckp: int | None, device: torch.device):
     """Everything an extract launch needs but its operands: kernel entry,
     the gather index that re-lays a reference-layout band for the kernel
-    (the device twin of _kernel_band), fold constants, launch shape."""
+    (the device twin of _kernel_band in aggregate mode, of _gemm_band in
+    per-column mode), fold constants, launch shape. The per-column band is
+    a constant of the run: its re-laid copy is kept while the same band
+    tensor, unmodified, comes back."""
     from .._build import lib
-    relay = torch.from_numpy(_kernel_band_index(ncp, n, kcn)).to(device)
-    tl, wg = _smem_plan(n)
-    init, bias = _fold_consts(n)
+    if ncheckp is None:
+        relay = torch.from_numpy(_kernel_band_index(ncp, n, kcn)).to(device)
+        tl, wg = _smem_plan(n)
+        init, bias = _fold_consts(n)
+
+        def launch(cols, band):
+            sp = cols.shape[-1]
+            frag = band.reshape(-1)[relay]            # int8, fragment order
+            keep = torch.empty((PL, n, n_outp, sp), dtype=torch.int32,
+                               device=device)
+            z = torch.empty((PL, n, sp), dtype=torch.int32, device=device)
+            rc = lib().hb_randousha_extract(
+                cols.data_ptr(), frag.data_ptr(), keep.data_ptr(),
+                z.data_ptr(), n, sp, n_out, n_outp, tl, wg, init, bias,
+                _launch_stream(cols))
+            return rc, keep, z
+
+        return launch
+
+    relay = torch.from_numpy(_gemm_band_index(ncp, n, n, kcn)).to(device)
+    cached = None              # (the band, weakly; its version; its tiles)
+
+    def tiles_of(band):
+        nonlocal cached
+        if cached is None or cached[0]() is not band \
+                or cached[1] != band._version:
+            cached = (weakref.ref(band), band._version,
+                      band.reshape(-1)[relay])
+        return cached[2]
 
     def launch(cols, band):
         sp = cols.shape[-1]
-        frag = band.reshape(-1)[relay]                # int8, fragment order
+        tiles = tiles_of(band)
         keep = torch.empty((PL, n, n_outp, sp), dtype=torch.int32,
                            device=device)
-        if ncheckp is None:
-            out2 = torch.empty((PL, n, sp), dtype=torch.int32, device=device)
-            rc = lib().hb_randousha_extract(
-                cols.data_ptr(), frag.data_ptr(), keep.data_ptr(),
-                out2.data_ptr(), n, sp, n_out, n_outp, tl, wg, init, bias,
-                _launch_stream(cols))
-        else:
-            out2 = torch.empty((PL, n, ncheckp, sp), dtype=torch.int32,
-                               device=device)
-            rc = lib().hb_randousha_extract_pc(
-                cols.data_ptr(), frag.data_ptr(), keep.data_ptr(),
-                out2.data_ptr(), n, sp, n_out, n_outp, ncheckp, tl, wg, init,
-                bias, _launch_stream(cols))
-        return rc, keep, out2
+        chk = torch.empty((PL, n, ncheckp, sp), dtype=torch.int32,
+                          device=device)
+        rc = lib().hb_randousha_extract_pc(
+            cols.data_ptr(), tiles.data_ptr(), keep.data_ptr(),
+            chk.data_ptr(), n, sp, n_out, n_outp, ncheckp,
+            *_gemm_args(n, n * sp, device), _launch_stream(cols))
+        return rc, keep, chk
 
     return launch
 
@@ -307,8 +333,9 @@ def _extract_launcher(n: int, n_out: int, n_outp: int, ncp: int, kcn: int,
 def _randousha_extract_cuda(cols, band, n_out: int, n_outp: int,
                             ncheckp: int | None):
     """Launch csrc/randousha_extract.cu (randousha_extract_kernel, or
-    randousha_extract_pc_kernel when ncheckp is given) on a receive tensor
-    and a reference-layout band, both on the card."""
+    randousha_extract_pc_kernel on csrc/band_gemm.cuh when ncheckp is
+    given) on a receive tensor and a reference-layout band, both on the
+    card."""
     global launches_extract, launches_extract_pc
     n = cols.shape[2]
     ncp = band.shape[0] // NBAL

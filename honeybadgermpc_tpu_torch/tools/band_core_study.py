@@ -1,29 +1,40 @@
-"""Where the wgmma band core's time goes (rows 3 and 16 of PERF.md).
+"""Where the wgmma band core's time goes (rows 3, 16, 17 and 5b of
+PERF.md).
 
     python3 honeybadgermpc_tpu_torch/tools/band_core_study.py [--parent DIR]
 
 Needs one CUDA card and nvcc. Builds knock-out variants of
 ``csrc/band_gemm.cuh`` (patched copies under the package's build
 directory: the sources in the checkout stay as they are) with
-``band_matmul.cu`` and ``open_fused.cu``, and times each at the main-path
-shapes of band_matmul and K1 with CUDA events, on the launch plan the
-wrappers choose. Variants:
+``band_matmul.cu``, ``open_fused.cu`` and ``randousha_extract.cu``, and
+times each at the main-path shapes of band_matmul, K1, K2 and the
+per-column extraction with CUDA events, on the launch plan the wrappers
+choose. K2 and the extraction run on consistent shares, as on their paths
+(no mismatch, so no atomics but where the dot is knocked out). Variants:
 
   final           the sources as they are
-  no_epilogue     the dot, the band stream and the planes; no fold, no store
-  no_stores       everything but the stores
+  no_epilogue     the dot, the band stream and the planes; no fold, no
+                  store, no compare and no fetch of K2's received words
+  no_stores       everything but the core's stores (band_matmul, K1, the
+                  extraction)
   no_dot          everything but the wgmma (the accumulators stay 0)
   no_planes       everything but the plane build
   stream_only     the band stream alone
   two_consumers   2 consumer warpgroups whatever the lane tile
   one_step_slots  one k-step per bulk copy (8 slots of 2 KB per ring)
   rows_out        band_matmul writing [PL, B, m] instead of [PL, m, B]
+  fetch_after_fold  K2 loading a lane's received words after its fold
+                  instead of ahead (the other kernels fetch nothing)
 
-With ``--parent DIR`` (a checkout of another commit of the port, e.g. its
-parent unpacked with ``git archive``) the script also times that tree's
-band_matmul and K1 through their wrappers, before and after the variants,
-in separate processes on the same card. Prints one JSON line per
-measurement; the card's name and power limit come first.
+K2 is timed on final, no_epilogue, no_dot, stream_only and
+fetch_after_fold, and on final at every lane tile that fits shared memory
+besides the planned one; the extraction on the first four. With
+``--parent DIR`` (a checkout of another commit of the port, e.g. its
+parent unpacked with ``git archive``) the script also times
+that tree's band_matmul, K1, K2 and per-column extraction through their
+wrappers, before and after the variants, in separate processes on the
+same card. Prints one JSON line per measurement; the card's name and power
+limit come first.
 """
 
 import argparse
@@ -40,13 +51,18 @@ ROOT = os.path.dirname(os.path.dirname(HERE))
 BAND_SHAPES = ((16896, 22, 64), (262144, 22, 64), (262144, 43, 64),
                (262144, 64, 64))
 K1_SHAPES = ((64, 22, 7820), (64, 43, 4001))
+K2_SHAPES = K1_SHAPES
+EXTRACT_PC = (64, 21, 4096)           # n, t, slots: 262,144 lanes, k = 64
+NEW_VARIANTS = ("final", "no_epilogue", "no_dot", "stream_only")
+K2_VARIANTS = NEW_VARIANTS + ("fetch_after_fold",)
+SOURCES = ("band_matmul.cu", "open_fused.cu", "randousha_extract.cu")
 
 
 def _patches():
     wgmma = ("wgmma_s8(acc[mb], da, db, kk > 0);", "(void)da; (void)db;")
     planes = ("build_planes<MB>(planes, src, mp, lane0);", "")
-    store = ("        for (int w = 0; w < PL; ++w) o[w * mp.ow] = words[w];",
-             "        if ((words[0] ^ words[7]) == 0x9e3779b9u) "
+    store = ("      for (int w = 0; w < PL; ++w) o[w * ow] = words[w];",
+             "      if ((words[0] ^ words[7]) == 0x9e3779b9u) "
              "o[0] = words[3];")
     return {
         "final": [],
@@ -61,16 +77,28 @@ def _patches():
                            ("constexpr int SLOTS = 2;",
                             "constexpr int SLOTS = 8;")],
         "rows_out": [],
+        "fetch_after_fold": [
+            ("    typename Epi::Fetch fx;\n    epi.fetch(mp, ln[0], col, fx);"
+             "\n", ""),
+            ("      epi.apply(mp, ln[mb], col, words, fx);\n"
+             "      if (mb + 1 < MB) epi.fetch(mp, ln[mb + 1], col, fx);\n",
+             "      typename Epi::Fetch fx;\n"
+             "      epi.fetch(mp, ln[mb], col, fx);\n"
+             "      epi.apply(mp, ln[mb], col, words, fx);\n")],
     }
 
 
 def _source(name, patches, base):
     src = base
     if "NOEPI" in patches:          # cut from the fold to the end of the body
-        a = base.index("    const int col = ct * NT + cl;")
+        a = base.index("    // the epilogue: fold, then the policy")
         b = base.index("// Launch `kern`")
         src = (base[:a] + "    if (acc[0][0] == 0x7fffffff && "
-               "acc[MB - 1][31] == 3) out[0] = 1;\n  }\n}\n\n" + base[b:])
+               "acc[MB - 1][31] == 3) __trap();\n  }\n}\n\n" + base[b:])
+        fetch = "    epi.fetch(mp, ln[0], col, fx);\n"
+        if fetch not in src:
+            raise SystemExit(f"variant {name}: patch anchor missing")
+        src = src.replace(fetch, "")
     for p in patches:
         if p != "NOEPI":
             if p[0] not in src:
@@ -89,23 +117,22 @@ def build_variants(work):
         os.makedirs(d, exist_ok=True)
         with open(os.path.join(d, "band_gemm.cuh"), "w") as f:
             f.write(_source(name, patches, base))
-        for fn in ("field_core.cuh", "band_matmul.cu", "open_fused.cu"):
+        for fn in ("field_core.cuh",) + SOURCES:
             shutil.copy(os.path.join(csrc, fn), d)
         if name == "rows_out":
             fn = os.path.join(d, "band_matmul.cu")
             s = open(fn).read()
-            old = "mp{B, B, bk, 0, k, 1, bm, 0, 1, B, k, m};"
+            old = "{static_cast<uint32_t*>(out), bm, 0, 1, B, 0, m}"
             if old not in s:
                 raise SystemExit("variant rows_out: patch anchor missing")
             with open(fn, "w") as f:
-                f.write(s.replace(old, "mp{B, B, bk, 0, k, 1, bm, 0, m, 1, "
-                                       "k, m};"))
+                f.write(s.replace(old, "{static_cast<uint32_t*>(out), bm, "
+                                       "0, m, 1, 0, m}"))
         so = os.path.join(d, "lib.so")
         procs[name] = (so, subprocess.Popen(
             [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
              "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", so,
-             os.path.join(d, "band_matmul.cu"),
-             os.path.join(d, "open_fused.cu")],
+             *(os.path.join(d, fn) for fn in SOURCES)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -119,7 +146,13 @@ def build_variants(work):
                                        vp]
         lib.hb_open_fused_k1.argtypes = [vp, vp, vp, i32, i32, i64, i32,
                                          u32p, vp]
-        lib.hb_band_matmul.restype = lib.hb_open_fused_k1.restype = i32
+        lib.hb_open_fused_k2.argtypes = [vp, vp, vp, vp, i32, i32, i64, i32,
+                                         u32p, vp]
+        lib.hb_randousha_extract_pc.argtypes = [vp, vp, vp, vp, i32, i32,
+                                                i32, i32, i32, i32, u32p, vp]
+        for fn in (lib.hb_band_matmul, lib.hb_open_fused_k1,
+                   lib.hb_open_fused_k2, lib.hb_randousha_extract_pc):
+            fn.restype = i32
         libs[name] = lib
     return libs
 
@@ -147,7 +180,10 @@ def time_variants(work):
     from honeybadgermpc_tpu_torch.ops import band_matmul as bm
     from honeybadgermpc_tpu_torch.ops import field_kernels as fk
     from honeybadgermpc_tpu_torch.ops import fused_open as fo
-    from honeybadgermpc_tpu_torch.ops.band_gemm import _fold_array, _gemm_plan
+    from honeybadgermpc_tpu_torch.ops import band_gemm as bg
+    from honeybadgermpc_tpu_torch.ops.band_gemm import (_fold_array,
+                                                        _gemm_band_index,
+                                                        _gemm_plan)
     from honeybadgermpc_tpu_torch.ops.fpmatmul import _vandermonde_int_rows
     dev = torch.device("cuda")
     nsm = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -162,6 +198,8 @@ def time_variants(work):
         mb = _gemm_plan(k, b, nsm)
         out = torch.empty((8, b, m), dtype=torch.int32, device=dev)
         for name, lib in libs.items():
+            if name == "fetch_after_fold":
+                continue
             def run():
                 return lib.hb_band_matmul(a.data_ptr(), band.data_ptr(),
                                           out.data_ptr(), b, k, m, mb, fold,
@@ -175,12 +213,12 @@ def time_variants(work):
         pts = tuple(range(1, n + 1))
         view = fo.pack_limbs(fk.rand_limbs((5, c), n * k * c, dev).reshape(
             16, n, k, c)).contiguous()
-        kern = fo._open_bands(pts, k, dev)[0][0][2]
+        kern = fo._open_bands(pts, k, dev)[0][0][3]
         fold = _fold_array(fo._bal_fold_init(k), fo._bal_bias(k))
         mb = _gemm_plan(k, n * c, nsm)
         out = torch.empty((8, n, n, c), dtype=torch.int32, device=dev)
         for name, lib in libs.items():
-            if name == "rows_out":
+            if name in ("rows_out", "fetch_after_fold"):
                 continue
             def run():
                 return lib.hb_open_fused_k1(view.data_ptr(), kern.data_ptr(),
@@ -191,15 +229,82 @@ def time_variants(work):
             say(kernel="open_fused_k1", variant=name, n=n, k=k, C=c,
                 lanes_per_block=64 * mb, ms=ev_ms(run))
         del view, out
+    for n, k, c in K2_SHAPES:
+        pts, cols = k2_input(n, k, c)
+        tiles = fo._open_bands(pts, k, dev)[0][1][3]
+        fold = _fold_array(fo._bal_fold_init(k), fo._bal_bias(k))
+        mb = _gemm_plan(k, n * c, nsm)
+        vals = torch.empty((8, n, c), dtype=torch.int32, device=dev)
+        errs = torch.zeros(n, dtype=torch.int32, device=dev)
+        fit = [b for b in (4, 2, 1) if bg.smem_bytes(k, b) <= bg.SMEM_MAX]
+        for name, b in [(v, mb) for v in K2_VARIANTS] + [
+                ("final", b) for b in fit if b != mb]:
+            def run():
+                return libs[name].hb_open_fused_k2(
+                    cols.data_ptr(), tiles.data_ptr(), vals.data_ptr(),
+                    errs.data_ptr(), n, k, c, b, fold, stream)
+            if run() != 0:
+                raise SystemExit(f"K2 {name} launch failed")
+            say(kernel="open_fused_k2", variant=name, n=n, k=k, C=c,
+                lanes_per_block=64 * b, planned=b == mb, ms=ev_ms(run))
+        del cols, vals
+    n, t, sp = EXTRACT_PC
+    n_out, n_outp, ncheckp = n - 2 * t, 24, 48
+    cols, band = extract_pc_input(n, t, sp)
+    tiles = band.reshape(-1)[torch.from_numpy(
+        _gemm_band_index(band.shape[0] // 32, n, n, band.shape[1])).to(dev)]
+    fold = _fold_array(fo._bal_fold_init(n), fo._bal_bias(n))
+    mb = _gemm_plan(n, n * sp, nsm)
+    keep = torch.empty((8, n, n_outp, sp), dtype=torch.int32, device=dev)
+    chk = torch.empty((8, n, ncheckp, sp), dtype=torch.int32, device=dev)
+    for name in NEW_VARIANTS:
+        def run():
+            return libs[name].hb_randousha_extract_pc(
+                cols.data_ptr(), tiles.data_ptr(), keep.data_ptr(),
+                chk.data_ptr(), n, sp, n_out, n_outp, ncheckp, mb, fold,
+                stream)
+        if run() != 0:
+            raise SystemExit(f"extract_pc {name} launch failed")
+        say(kernel="randousha_extract_pc", variant=name, n=n, t=t, sp=sp,
+            lanes_per_block=64 * mb, ms=ev_ms(run))
+
+
+def k2_input(n, k, c):
+    """Consistent K2 input at n parties, k = t+1 or 2t+1, C chunks: K1 of
+    dealt shares (a receive tensor of the deal, its first k dealers' words
+    read as every party's k coefficients), as the fallback programs give
+    it. -> (points, cols [PL, n, n, C])."""
+    import torch
+    from honeybadgermpc_tpu_torch.ops import fused_open as fo
+    from honeybadgermpc_tpu_torch.ops import fused_randousha as fr
+    pts = tuple(range(1, n + 1))
+    t = (n - 1) // 3
+    recv = fr.randousha_deal((5, c), n, t, k - 1, -(-c // 128) * 128, pts,
+                             torch.device("cuda"))
+    view = recv[:, :, :k, :c].contiguous()
+    del recv
+    return pts, fo.open_k1(view, pts)
+
+
+def extract_pc_input(n, t, sp):
+    """A receive tensor of the degree-t deal and the n-point band."""
+    import torch
+    from honeybadgermpc_tpu_torch.ops import fused_randousha as fr
+    dev = torch.device("cuda")
+    pts = fr._party_points(n)
+    return (fr.randousha_deal((61, t), n, t, t, sp, pts, dev),
+            fr._encode_band_device(pts, n, dev)[0])
 
 
 def time_tree(tag):
-    """band_matmul and K1 of the tree this process imports, through their
-    wrappers (whatever design that tree has)."""
+    """band_matmul, K1, K2 and the per-column extraction of the tree this
+    process imports, through their wrappers (whatever design that tree
+    has)."""
     import torch
     from honeybadgermpc_tpu_torch.ops import band_matmul as bm
     from honeybadgermpc_tpu_torch.ops import field_kernels as fk
     from honeybadgermpc_tpu_torch.ops import fused_open as fo
+    from honeybadgermpc_tpu_torch.ops import fused_randousha as fr
     from honeybadgermpc_tpu_torch.ops.fpmatmul import _vandermonde_int_rows
     dev = torch.device("cuda")
     for b, k, m in BAND_SHAPES:
@@ -216,6 +321,19 @@ def time_tree(tag):
         say(kernel="open_fused_k1", tree=tag, n=n, k=k, C=c,
             ms=ev_ms(lambda: fo.open_k1(view, pts)))
         del view
+    for n, k, c in K2_SHAPES:
+        pts, cols = k2_input(n, k, c)
+        _, errs = fo.open_k2(cols, pts, k)
+        if errs.any():
+            raise SystemExit(f"K2 input not consistent at {(n, k, c)}")
+        say(kernel="open_fused_k2", tree=tag, n=n, k=k, C=c,
+            ms=ev_ms(lambda: fo.open_k2(cols, pts, k)))
+        del cols
+    n, t, sp = EXTRACT_PC
+    cols, band = extract_pc_input(n, t, sp)
+    say(kernel="randousha_extract_pc", tree=tag, n=n, t=t, sp=sp,
+        ms=ev_ms(lambda: fr.randousha_extract(cols, band, n - 2 * t, 24,
+                                              48)))
 
 
 def main():
