@@ -46,7 +46,11 @@ Phases, each printing one JSON line; any failure exits non-zero (18 and
               times and the computed bound; row 3 (band_matmul, on the wgmma
               core) at B in {1, 63, 64, 65, 16896, 262144}, k in {1, 3, 22,
               43, 64}, m in {1, 5, 64, 128} with a Python-int sample each,
-              timed at the open's shape and the eager programs' three
+              timed at the open's shape and the eager programs' three; the
+              deal and the aggregated extraction (rows 4 and 5a, on the
+              wgmma core) at n=8, t=2 and n=64, t=21 over 4096 slots, both
+              degrees, also at every lane tile that fits, on outputs
+              filled with nonzero bytes
   4 main      deal, pack and open every segment; nerr == 0; opened secrets
               against a Python-int Lagrange oracle; launch counters moved
   5 faults    a flipped word is detected and charged to the right party
@@ -166,8 +170,8 @@ from honeybadgermpc_tpu_torch.ops import fused_open_direct as fod  # noqa: E402
 from honeybadgermpc_tpu_torch.ops import fused_randousha as fr  # noqa: E402
 from honeybadgermpc_tpu_torch.ops import montgomery as mont  # noqa: E402
 from honeybadgermpc_tpu_torch.ops import mxu_matmul as mxu  # noqa: E402
-from honeybadgermpc_tpu_torch.ops.band_gemm import \
-    _gemm_band_index  # noqa: E402
+from honeybadgermpc_tpu_torch.ops.band_gemm import (  # noqa: E402
+    SMEM_MAX, _gemm_band_index, smem_bytes)
 from honeybadgermpc_tpu_torch.ops.fparray import (  # noqa: E402
     FpArray, dev_const)
 from honeybadgermpc_tpu_torch.ops.fpmatmul import (  # noqa: E402
@@ -696,17 +700,44 @@ def deal_plain_full(key, n, t, degree, sp, pts, dev, window=512):
     return torch.cat(parts, dim=-1)
 
 
+def lane_tiles(k):
+    """64-lane blocks per thread block whose planes of k operands fit
+    shared memory: every lane tile a plan may launch for k."""
+    return [mb for mb in (4, 2, 1) if smem_bytes(k, mb) <= SMEM_MAX]
+
+
+def plans_text(k):
+    return ", ".join(str(64 * mb) for mb in lane_tiles(k))
+
+
 def compare_deal(dev, n, t, degree, sp, key):
+    """The deal against its plain version through its wrapper, then at
+    every lane tile that fits (its plan picks one by k and lane count) on
+    an output filled with nonzero bytes: every word must be written."""
     pts = fr._party_points(n)
     got = fr.randousha_deal(key, n, t, degree, sp, pts, dev)
     want = deal_plain_full(key, n, t, degree, sp, pts, dev)
     sync()
     check(torch.equal(got, want),
           f"randousha_deal != plain at n={n} t={t} degree={degree} sp={sp}")
+    launch = fr._deal_launcher(n, t, degree, sp, pts, dev)
+    for mb in lane_tiles(launch.kk):
+        junk = torch.full_like(want, 0x5A5A5A5A)
+        rc, _ = launch(key, plan=mb, out=junk)
+        sync()
+        check(rc == 0 and torch.equal(junk, want),
+              f"randousha_deal at {64 * mb}-lane tiles "
+              f"on a 0x5A-filled output != plain at n={n} t={t} "
+              f"degree={degree} sp={sp}")
+        del junk
     return max_abs_err(got, want), got, pts
 
 
 def compare_extract(dev, n, t, sp, key, cols):
+    """The aggregated extraction against its plain version through its
+    wrapper, then at every lane tile that fits on outputs filled with
+    nonzero bytes (the dot's n_out + 1 columns end in a half-empty tile,
+    keep rows n_out+1.. are written zero by the kernel's finish)."""
     run = fr._randousha_calls(n, t, sp, fr._party_points(n), device=dev)
     n_out, n_outp = run.meta[:2]
     band = run.folded_band(key)[0]
@@ -718,6 +749,17 @@ def compare_extract(dev, n, t, sp, key, cols):
     check(torch.equal(keep[:, :, n_out], z)
           and not bool(keep[:, :, n_out + 1:].any()),
           "extract: row n_out must be the check sharing, rows above zero")
+    launch = fr._extract_launcher(n, n_out, n_outp, band.shape[0] // 32,
+                                  band.shape[1], None, dev)
+    for mb in lane_tiles(n):
+        junk = [torch.full_like(x, 0x5A5A5A5A) for x in (keep_p, z_p)]
+        rc, _, _ = launch(cols, band, *junk, plan=mb)
+        sync()
+        check(rc == 0 and torch.equal(junk[0], keep_p)
+              and torch.equal(junk[1], z_p),
+              f"randousha_extract at {64 * mb}-lane tiles "
+              f"on 0x5A-filled outputs != plain at n={n} t={t} sp={sp}")
+        del junk
     return max(max_abs_err(keep, keep_p), max_abs_err(z, z_p)), keep, z, band
 
 
@@ -754,10 +796,14 @@ def phase_kernels_offline(dev):
     for degree in (2, 4):
         e, cols_s, _ = compare_deal(dev, 8, 2, degree, 128, (5, 6))
         err["randousha_deal"] = max(err["randousha_deal"], e)
-        shapes.append(f"randousha_deal n=8 t=2 degree={degree} sp=128")
+        shapes.append(f"randousha_deal n=8 t=2 degree={degree} sp=128, "
+                      f"lane tiles {plans_text(degree + 1)} on "
+                      "0x5A-filled outputs")
         e, keep_s, _, _ = compare_extract(dev, 8, 2, 128, (5, 6), cols_s)
         err["randousha_extract"] = max(err["randousha_extract"], e)
-        shapes.append(f"randousha_extract n=8 t=2 sp=128 (degree {degree})")
+        shapes.append(f"randousha_extract n=8 t=2 sp=128 (degree {degree}; "
+                      "5 columns: a half-empty last tile, zero keep rows "
+                      f"5-7), lane tiles {plans_text(8)}")
     sm = keep_s[:, :3, :5, :77].contiguous()           # unaligned [8,3,5,77]
     e1, e2, _ = compare_finish(dev, sm, sm.flip(3), sm.flip(2), 7)
     err["mul_add_packed4"], err["sub_bcast_packed4"] = e1, e2
@@ -774,9 +820,11 @@ def phase_kernels_offline(dev):
     check(not torch.equal(cols_t, cols_2t), "the two degrees must differ")
     e, keep_2t, _, _ = compare_extract(dev, N, T, KT, key, cols_2t)
     err["randousha_extract"] = max(err["randousha_extract"], e)
-    shapes += [f"randousha_deal n={N} t={T} degree={d} sp={KT} (all slots)"
-               for d in (T, 2 * T)]
-    shapes.append(f"randousha_extract n={N} t={T} sp={KT} (both degrees)")
+    shapes += [f"randousha_deal n={N} t={T} degree={d} sp={KT} (all slots), "
+               f"lane tiles {plans_text(d + 1)}" for d in (T, 2 * T)]
+    shapes.append(f"randousha_extract n={N} t={T} sp={KT} (both degrees; "
+                  f"{N_OUT + 1} columns: a half-empty last tile, zero keep "
+                  f"row {N_OUT + 1}), lane tiles {plans_text(N)}")
     del cols_2t
     keep_b = keep_t.roll(1, dims=3)                    # a second operand
     pad = (-N_OUTP * KT) % (2 * T + 1)
@@ -2381,8 +2429,8 @@ def phase_per_column(dev, reps):
 
 def ptxas_core(log):
     """Registers and spill bytes of the kernels on csrc/band_gemm.cuh, from
-    ptxas' report in the build log: {"<kernel> lanes=<64 MB>": "<registers>
-    registers, <stores>/<loads> spill bytes"}."""
+    ptxas' report in the build log: {"<kernel> lanes=<64 MB>":
+    "<registers> registers, <stores>/<loads> spill bytes"}."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '_ZN2hb(\d+)(\w+)'", ln)
@@ -2392,7 +2440,8 @@ def ptxas_core(log):
             mb = re.match(r"ILi(\d)E", rest[len(kern):])
             name = f"{kern} lanes={64 * int(mb.group(1))}" if mb and kern in (
                 "band_matmul_kernel", "open_fused_k1_kernel",
-                "open_fused_k2_kernel", "randousha_extract_pc_kernel") \
+                "open_fused_k2_kernel", "randousha_extract_pc_kernel",
+                "randousha_deal_kernel", "randousha_extract_kernel") \
                 else None
             continue
         if name is None:
@@ -2546,7 +2595,8 @@ def kernels_line(times, err, launches, launches_triples, launches_robust,
                                      "bound_ms": bound3, "bound_by": by3,
                                      "shape": shape3}
         if name in ("band_matmul", "open_fused_k1", "open_fused_k2",
-                    "randousha_extract_pc"):
+                    "randousha_extract_pc", "randousha_deal",
+                    "randousha_extract"):
             row["core"] = "honeybadgermpc_tpu_torch/csrc/band_gemm.cuh"
         if name == "band_matmul":
             row["eager_shapes"] = []

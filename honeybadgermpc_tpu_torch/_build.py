@@ -102,10 +102,10 @@ def _declare(lib):
     lib.hb_band_matmul.argtypes = [vp, vp, vp, i64, i32, i32, i32, init,
                                    vp]
     lib.hb_rand_limbs.argtypes = [u32, u32, vp, i64, vp]
-    lib.hb_randousha_deal.argtypes = [u32, u32, vp, vp, i64, i32, i32, i32,
-                                      i32, i32, init, i32, vp]
+    lib.hb_randousha_deal.argtypes = [u32, u32, vp, vp, i32, i32, i32, i32,
+                                      i32, init, vp]
     lib.hb_randousha_extract.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
-                                         i32, i32, init, i32, vp]
+                                         i32, init, vp]
     lib.hb_mul_add_packed4.argtypes = [vp, vp, vp, vp, i64, i64, i64, vp]
     lib.hb_sub_bcast_packed4.argtypes = [vp, vp, vp, i64, i64, i64, vp]
     lib.hb_mont_mul.argtypes = [vp, vp, vp, i64, vp]

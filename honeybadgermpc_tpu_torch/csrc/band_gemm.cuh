@@ -1,9 +1,9 @@
 // band_gemm: the Vandermonde band encode as one int8 GEMM per block, on
 // Hopper's wgmma and bulk async copies. Runs band_matmul_kernel
-// (band_matmul.cu), K1 and K2 of the three-kernel open (open_fused.cu) and
-// the per-column extraction (randousha_extract.cu); each brings its own
-// epilogue policy (below). The other band kernels (the direct open, the
-// deal, the aggregated extraction, K3 and the per-column check) keep
+// (band_matmul.cu), K1 and K2 of the three-kernel open (open_fused.cu), the
+// deal (randousha_deal.cu) and both extractions (randousha_extract.cu);
+// each brings its own operand source and epilogue policy (below). The
+// other band kernels (the direct open, K3 and the per-column check) keep
 // field_core.cuh's mma.sync core.
 //
 // The function (ops/fused_open.py's plain core): for each lane, k packed
@@ -25,9 +25,11 @@
 //              as many as the planes of k operands leave room for, and no
 //              more than fill the card); its planes stay in shared memory
 //              for all its columns.
-//   planes     built once per block by all threads: 8 packed words ->
-//              balance_word's carry chain -> 32 digit bytes per (lane,
-//              operand), stored K-major in wgmma's no-swizzle canonical
+//   planes     built once per block by all threads: the operand source
+//              policy gives the 8 packed words of a (lane, operand) item
+//              (LoadSrc: loaded through the EncodeMap; DrawSrc: drawn in
+//              registers) -> balance_word's carry chain -> 32 digit bytes,
+//              stored K-major in wgmma's no-swizzle canonical
 //              layout: core matrices of 8 lanes x 16 bytes, [operand][16-
 //              byte half][lane octet][lane % 8][16]. A fence.proxy.async
 //              makes the ordinary stores visible to wgmma.
@@ -59,8 +61,8 @@
 //              _fold_reduce_words). The result words are the packed
 //              words: no pack step. What a (lane, column) then does with
 //              them is the kernel's epilogue policy: a store (StoreEpi),
-//              a compare and count (K2), two stores (the per-column
-//              extraction).
+//              a compare and count (K2), stores to two outputs (the
+//              extractions).
 #pragma once
 
 #include "field_core.cuh"
@@ -369,25 +371,126 @@ __device__ __forceinline__ void plane_item(unsigned char* planes, int oct_n,
   dst[oct_n * 8] = make_uint4(dig[4], dig[5], dig[6], dig[7]);
 }
 
-__device__ __forceinline__ void load_item(const uint32_t* __restrict__ src,
-                                          const EncodeMap& mp, long long g,
-                                          int i, uint32_t (&word)[PL]) {
-  if (g < mp.nlanes && i < mp.k) {
-    const long long grp = g / mp.C;
-    const long long c = g - grp * mp.C;
-    const uint32_t* p =
-        src + grp * mp.sp + c * mp.sc + static_cast<long long>(i) * mp.si;
+// ---------------------------------------------------------------------------
+// Operand source policies: where the 8 packed words of item (lane g,
+// operand i) come from. A policy type has
+//
+//   item     item(mp, g, i, word): the words, zero for a lane past the end
+//            or an operand past k (planes of zero operands dot to nothing)
+// ---------------------------------------------------------------------------
+
+// Loaded from device memory through the EncodeMap (band_matmul, K1, K2,
+// the extractions).
+struct LoadSrc {
+  const uint32_t* src;              // read with __ldg
+
+  __device__ __forceinline__ void item(const EncodeMap& mp, long long g, int i,
+                                       uint32_t (&word)[PL]) const {
+    if (g < mp.nlanes && i < mp.k) {
+      const long long grp = g / mp.C;
+      const long long c = g - grp * mp.C;
+      const uint32_t* p =
+          src + grp * mp.sp + c * mp.sc + static_cast<long long>(i) * mp.si;
 #pragma unroll
-    for (int w = 0; w < PL; ++w) word[w] = __ldg(p + w * mp.sw);
-  } else {
+      for (int w = 0; w < PL; ++w) word[w] = __ldg(p + w * mp.sw);
+    } else {
 #pragma unroll
-    for (int w = 0; w < PL; ++w) word[w] = 0u;
+      for (int w = 0; w < PL; ++w) word[w] = 0u;
+    }
   }
+};
+
+// 12 Threefry words (little-endian, 384 bits T) -> T * 2^-144 mod p as 8
+// packed words: four 32-bit Montgomery rounds and one 16-bit round. The
+// same quotient as field_core.cuh's redc384 (nine 16-bit rounds), so the
+// same value < 2p and, after one conditional subtract, the same words
+// (plain twin ops/band_gemm.py::_redc384_words).
+__device__ __forceinline__ void redc384_words(const uint32_t (&x)[12],
+                                              uint32_t (&out)[PL]) {
+  uint32_t t[13];
+#pragma unroll
+  for (int j = 0; j < 12; ++j) t[j] = x[j];
+  t[12] = 0u;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {            // t <- t + m p, m p = -t_r
+    const uint32_t m = t[r] * PINV;        // mod 2^32
+    unsigned long long c = 0;
+#pragma unroll
+    for (int j = 0; j < PL; ++j) {
+      const unsigned long long s =
+          static_cast<unsigned long long>(m) * kP32[j] + t[r + j] + c;
+      t[r + j] = static_cast<uint32_t>(s);
+      c = s >> 32;
+    }
+#pragma unroll
+    for (int j = r + PL; j < 13; ++j) {
+      const unsigned long long s = static_cast<unsigned long long>(t[j]) + c;
+      t[j] = static_cast<uint32_t>(s);
+      c = s >> 32;
+    }
+  }
+  // V = t[4..12] < 2^256 + p; one 16-bit round: V + m16 p = 0 mod 2^16
+  const uint32_t m16 = (0u - t[4]) & 0xFFFFu;
+  unsigned long long c = 0;
+#pragma unroll
+  for (int j = 0; j < PL; ++j) {
+    const unsigned long long s =
+        static_cast<unsigned long long>(m16) * kP32[j] + t[4 + j] + c;
+    t[4 + j] = static_cast<uint32_t>(s);
+    c = s >> 32;
+  }
+  t[12] += static_cast<uint32_t>(c);
+  uint32_t v[PL];
+#pragma unroll
+  for (int j = 0; j < PL; ++j) v[j] = (t[4 + j] >> 16) | (t[5 + j] << 16);
+  const uint32_t hi = t[12] >> 16;         // V / 2^16 < 2p
+  uint32_t dif[PL];
+  uint32_t borrow = 0;
+#pragma unroll
+  for (int j = 0; j < PL; ++j) {
+    const unsigned long long s = static_cast<unsigned long long>(v[j]) -
+                                 kP32[j] - borrow;
+    dif[j] = static_cast<uint32_t>(s);
+    borrow = static_cast<uint32_t>(s >> 63);
+  }
+  const bool take = (hi != 0u) | (borrow == 0u);
+#pragma unroll
+  for (int j = 0; j < PL; ++j) out[j] = take ? dif[j] : v[j];
 }
 
-template <int MB>
+// Drawn in registers (the deal, randousha_deal.cu): item (g, i) is
+// coefficient i of lane g's polynomial, the uniform draw of Threefry-2x32-20
+// at counters c0 = DEAL_CTR_TAG + 8 row + s (s = 0..5), c1 = g, through
+// the 384-bit REDC. Coefficient 0 is global row 0 (the secret, the same in
+// both degrees), coefficient i >= 1 row row1 + i - 1. The coefficients
+// never reach device memory.
+constexpr uint32_t DEAL_CTR_TAG = 0x10000u;
+
+struct DrawSrc {
+  uint32_t key0, key1;
+  int row1;
+
+  __device__ __forceinline__ void item(const EncodeMap& mp, long long g, int i,
+                                       uint32_t (&word)[PL]) const {
+    if (g < mp.nlanes && i < mp.k) {
+      const uint32_t row = i == 0 ? 0u : static_cast<uint32_t>(row1 + i - 1);
+      const uint32_t c0 = DEAL_CTR_TAG + 8u * row;
+      uint32_t x[12];
+#pragma unroll
+      for (int s = 0; s < 6; ++s)
+        threefry2x32(key0, key1, c0 + static_cast<uint32_t>(s),
+                     static_cast<uint32_t>(g), x[2 * s], x[2 * s + 1]);
+      redc384_words(x, word);
+    } else {
+#pragma unroll
+      for (int w = 0; w < PL; ++w) word[w] = 0u;
+    }
+  }
+};
+
+template <int MB, class Src>
 __device__ __forceinline__ void build_planes(unsigned char* planes,
-                                             const uint32_t* __restrict__ src,
+                                             const Src& src,
                                              const EncodeMap& mp,
                                              long long lane0) {
   constexpr int TM = 64 * MB;
@@ -403,16 +506,16 @@ __device__ __forceinline__ void build_planes(unsigned char* planes,
     const int i1 = 4 * (it / OCT) + q4, o1 = it % OCT;
     const int i2 = 4 * (it2 / OCT) + q4, o2 = it2 % OCT;
     uint32_t w1[PL], w2[PL];
-    load_item(src, mp, lane0 + 8 * o1 + l8, i1, w1);
-    load_item(src, mp, lane0 + 8 * o2 + l8, it2 < items ? i2 : mp.k, w2);
+    src.item(mp, lane0 + 8 * o1 + l8, i1, w1);
+    src.item(mp, lane0 + 8 * o2 + l8, it2 < items ? i2 : mp.k, w2);
     if (i1 < mp.k) plane_item(planes, OCT, i1, o1, l8, w1);
     if (it2 < items && i2 < mp.k) plane_item(planes, OCT, i2, o2, l8, w2);
   }
 }
 
-template <int MB, class Epi>
+template <int MB, class Src, class Epi>
 __device__ __forceinline__ void band_gemm_body(
-    unsigned char* smem, const uint32_t* __restrict__ src,
+    unsigned char* smem, const Src& src,
     const unsigned char* __restrict__ band, const EncodeMap& mp,
     const WordFold& wf, const Epi& epi) {
   constexpr int TM = 64 * MB;
@@ -559,12 +662,12 @@ __device__ __forceinline__ void band_gemm_body(
     epi.finish(mp, ln[mb], wgi * NT + cl, CONSUMERS * NT);
 }
 
-// Launch `kern` (a __global__ wrapper of band_gemm_body<MB, Epi>) on
-// `stream`.
-template <int MB, typename Kernel, class Epi>
-int launch(Kernel kern, const void* src, const void* band,
-           const EncodeMap& mp, const Epi& epi, const uint32_t* fold,
-           void* stream) {
+// Launch `kern` (a __global__ wrapper of band_gemm_body<MB, Src, Epi>
+// taking the source policy `src` first) on `stream`.
+template <int MB, typename Kernel, class Src, class Epi>
+int launch_with(Kernel kern, const Src& src, const void* band,
+                const EncodeMap& mp, const Epi& epi, const uint32_t* fold,
+                void* stream) {
   WordFold wf;
   for (int j = 0; j < NW; ++j) wf.w[j] = fold[j];
   const size_t smem = smem_bytes(mp.k, MB);
@@ -575,9 +678,17 @@ int launch(Kernel kern, const void* src, const void* band,
   const unsigned grid =
       static_cast<unsigned>((mp.nlanes + 64 * MB - 1) / (64 * MB));
   kern<<<grid, threads(MB), smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(src),
-      static_cast<const unsigned char*>(band), mp, wf, epi);
+      src, static_cast<const unsigned char*>(band), mp, wf, epi);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The same for a kernel whose operands are loaded (LoadSrc) from `src`.
+template <int MB, typename Kernel, class Epi>
+int launch(Kernel kern, const void* src, const void* band,
+           const EncodeMap& mp, const Epi& epi, const uint32_t* fold,
+           void* stream) {
+  return launch_with<MB>(kern, static_cast<const uint32_t*>(src), band, mp,
+                         epi, fold, stream);
 }
 
 }  // namespace gemm

@@ -38,7 +38,7 @@ __global__ void __launch_bounds__(gemm::threads(MB), 1)
                        gemm::EncodeMap mp, gemm::WordFold wf,
                        gemm::StoreEpi epi) {
   extern __shared__ __align__(128) unsigned char smem[];
-  gemm::band_gemm_body<MB>(smem, a, band, mp, wf, epi);
+  gemm::band_gemm_body<MB>(smem, gemm::LoadSrc{a}, band, mp, wf, epi);
 }
 
 }  // namespace hb

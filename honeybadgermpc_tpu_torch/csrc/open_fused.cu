@@ -166,7 +166,7 @@ __global__ void __launch_bounds__(gemm::threads(MB), 1)
                          gemm::EncodeMap mp, gemm::WordFold wf,
                          gemm::StoreEpi epi) {
   extern __shared__ __align__(128) unsigned char smem[];
-  gemm::band_gemm_body<MB>(smem, src, band, mp, wf, epi);
+  gemm::band_gemm_body<MB>(smem, gemm::LoadSrc{src}, band, mp, wf, epi);
 }
 
 // K2's epilogue on the core. Lane g = j * C + c (destination j), its
@@ -229,7 +229,7 @@ __global__ void __launch_bounds__(gemm::threads(MB), 1)
                          const unsigned char* __restrict__ band,
                          gemm::EncodeMap mp, gemm::WordFold wf, K2Epi epi) {
   extern __shared__ __align__(128) unsigned char smem[];
-  gemm::band_gemm_body<MB>(smem, src, band, mp, wf, epi);
+  gemm::band_gemm_body<MB>(smem, gemm::LoadSrc{src}, band, mp, wf, epi);
 }
 
 __global__ void open_fused_k3_kernel(const uint32_t* __restrict__ src,

@@ -19,117 +19,74 @@
 // of eight because of its register tiles; the groups are not part of the
 // function and are not reproduced.)
 //
-//   band  int4   [m, k, 2, 32]  column, k-step (= coefficient), m-tile,
-//                               thread: the A fragments of mma.m16n8k32
-//                               (ops/fused_open.py::_kernel_band)
-//   out   uint32 [PL, m, B]     the receive tensor: B = n*sp flat lanes, so
-//                               this is [PL, dst, src, sp]; the extraction
-//                               reads one destination's n sources as n
-//                               contiguous rows of sp words
+//   band  int8   [n/2, k, 2048]  the encode band in band_gemm tiles (ops/
+//                                band_gemm.py::_gemm_band), n columns
+//   out   uint32 [PL, n, B]      the receive tensor: B = n*sp flat lanes, so
+//                                this is [PL, dst, src, sp]; the extraction
+//                                reads one destination's n sources as n
+//                                contiguous rows of sp words
 //
-// What bounds it on an H100: operations. Per lane the int8 dot is m columns
-// x 32 diagonals x 32k digits against 32m bytes written (nothing is read
-// but the band); the sampler (about 1200 integer instructions per
-// coefficient) and the fold/REDC epilogue (about 450 per column) run on the
-// CUDA cores on top of the dot.
+// What bounds it on an H100: operations. Per lane the int8 dot is n
+// columns x 32 diagonals x 32k digits against 32n bytes written (nothing is
+// read but the band); the sampler (about 535 32-bit integer instructions
+// per coefficient at the least) and the fold epilogue run on the CUDA cores
+// on top of the dot.
 //
-// Design: the shape of band_matmul.cu with the operand load replaced by the
-// sampler. A block owns TL lanes and WG column slots; thread (slot, lane)
-// draws coefficients slot, slot+WG, ... of its lane in registers and writes
-// their balanced digit words to shared memory. After one barrier every warp
-// walks its slot's columns on its own (band fragments from device memory,
-// the dot on the tensor cores, per-warp transpose, fold/REDC in registers)
-// and stores 8 words per lane; a warp's 32 lanes are 32 neighbouring
-// addresses of each output row.
-#include "field_core.cuh"
+// Design: band_matmul's GEMM on band_gemm.cuh's core (wgmma, the band
+// streamed through shared memory, the fold straight from the accumulators)
+// with the operand source DrawSrc: the plane build draws each (lane,
+// coefficient) item in registers (Threefry, then four 32-bit Montgomery
+// rounds and one 16-bit one) where band_matmul loads it, and StoreEpi
+// writes every column lane-contiguous. The draw runs in the plane phase,
+// before the block's first wgmma; the producer warps' first band loads fly
+// under it. The lane tile is ops/band_gemm.py::_gemm_plan's.
+#include "band_gemm.cuh"
 
 namespace hb {
 
-constexpr uint32_t DEAL_CTR_TAG = 0x10000u;
+template <int MB>
+__global__ void __launch_bounds__(gemm::threads(MB), 1)
+    randousha_deal_kernel(gemm::DrawSrc src,
+                          const unsigned char* __restrict__ band,
+                          gemm::EncodeMap mp, gemm::WordFold wf,
+                          gemm::StoreEpi epi) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  gemm::band_gemm_body<MB>(smem, src, band, mp, wf, epi);
+}
 
-__global__ void randousha_deal_kernel(uint32_t key0, uint32_t key1,
-                                      const int4* __restrict__ band,
-                                      uint32_t* __restrict__ out,
-                                      long long B, int k, int row1, int m,
-                                      int tl, FoldConst fc) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int wg = blockDim.x / tl;
-  const int tid = threadIdx.x;
-  const int laneid = tid & 31;
-  const int slot = tid / tl;               // column slot of this warp
-  const int lane = tid - slot * tl;        // lane within the block
-  const long long b = static_cast<long long>(blockIdx.x) * tl + lane;
-  const bool valid = b < B;
-  const int stride = tl + 8;
-  const BandSmem s = band_smem_carve(smem, k, tl, wg);
-  int* s_d = s.stage + (tid >> 5) * 32 * D_STRIDE;
-
-  // draw coefficients slot, slot+wg, ... of this lane; digits to shared
-  const uint32_t c1 = static_cast<uint32_t>(b);
-  for (int i = slot; i < k; i += wg) {
-    const uint32_t row = (i == 0) ? 0u : static_cast<uint32_t>(row1 + i - 1);
-    const uint32_t c0 = DEAL_CTR_TAG + 8u * row;
-    uint32_t rows[25];
-#pragma unroll
-    for (int c = 0; c < 6; ++c) {
-      uint32_t w0, w1;
-      threefry2x32(key0, key1, c0 + static_cast<uint32_t>(c), c1, w0, w1);
-      rows[4 * c + 0] = w0 & MASK;
-      rows[4 * c + 1] = w0 >> 16;
-      rows[4 * c + 2] = w1 & MASK;
-      rows[4 * c + 3] = w1 >> 16;
-    }
-    rows[24] = 0u;
-    uint32_t limbs[L], words[PL];
-    redc384(rows, limbs);
-    pack16(limbs, words);
-    uint32_t carry = 0;
-#pragma unroll
-    for (int w = 0; w < PL; ++w) {
-      const uint32_t word = valid ? words[w] : 0u;
-      s.planes[(i * PL + w) * stride + lane] = balance_word(word, carry);
-    }
-  }
-
-  __syncthreads();                         // planes are ready
-
-  // no block barrier below: each warp walks its slot's columns on its own
-  for (int col = slot; col < m; col += wg) {
-    int acc[2][4][4];
-    band_mma_column(acc, s.planes, stride, lane - laneid,
-                    band + static_cast<size_t>(col) * k * 64, k, laneid);
-    int32_t ds[NBAL];
-    uint32_t limbs[L], words[PL];
-    band_mma_diagonals(acc, s_d, laneid, ds);
-    fold_reduce_bal(ds, fc, limbs);
-    pack16(limbs, words);
-    if (valid) {
-#pragma unroll
-      for (int w = 0; w < PL; ++w)
-        out[(static_cast<size_t>(w) * m + col) * B + b] = words[w];
-    }
-  }
+template <int MB>
+int launch_deal(const gemm::DrawSrc& src, const void* band,
+                const gemm::EncodeMap& mp, const gemm::StoreEpi& epi,
+                const uint32_t* fold, void* stream) {
+  return gemm::launch_with<MB>(randousha_deal_kernel<MB>, src, band, mp, epi,
+                               fold, stream);
 }
 
 }  // namespace hb
 
+// key0, key1: the run key; band: _gemm_band tiles of the k-coefficient
+// encode band at the n points; out [PL, n, n*sp]; row1: the global row of
+// coefficient 1; mb: 64-lane blocks per thread block; fold:
+// _word_fold_consts(k).
 extern "C" int hb_randousha_deal(uint32_t key0, uint32_t key1,
-                                 const void* band, void* out, long long B,
-                                 int k, int row1, int m, int tl, int wg,
-                                 const uint32_t* init, int bias,
-                                 void* stream) {
-  hb::FoldConst fc;
-  for (int j = 0; j < hb::NL; ++j) fc.init[j] = init[j];
-  fc.bias = bias;
-  const size_t smem = hb::band_smem_bytes(k, tl, wg, 0);
-  cudaError_t err = cudaFuncSetAttribute(
-      hb::randousha_deal_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned grid = static_cast<unsigned>((B + tl - 1) / tl);
-  hb::randousha_deal_kernel<<<grid, tl * wg, smem,
-                              static_cast<cudaStream_t>(stream)>>>(
-      key0, key1, static_cast<const int4*>(band), static_cast<uint32_t*>(out),
-      B, k, row1, m, tl, fc);
-  return static_cast<int>(cudaGetLastError());
+                                 const void* band, void* out, int n, int sp,
+                                 int k, int row1, int mb,
+                                 const uint32_t* fold, void* stream) {
+  const long long B = static_cast<long long>(n) * sp;
+  // one group of B lanes: lane g = src * sp + slot, its column (the
+  // destination) col at out[w*n*B + col*B + g]
+  const hb::gemm::EncodeMap mp{B, B, 0, 0, 0, 0, k, n};
+  const hb::gemm::DrawSrc src{key0, key1, row1};
+  const hb::gemm::StoreEpi epi{
+      {static_cast<uint32_t*>(out), n * B, 0, 1, B, 0, n}};
+  switch (mb) {
+    case 4:
+      return hb::launch_deal<4>(src, band, mp, epi, fold, stream);
+    case 2:
+      return hb::launch_deal<2>(src, band, mp, epi, fold, stream);
+    case 1:
+      return hb::launch_deal<1>(src, band, mp, epi, fold, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

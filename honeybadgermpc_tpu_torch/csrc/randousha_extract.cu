@@ -19,120 +19,83 @@
 //       columns ncheck .. ncheckp-1 are written as zero.
 //
 //   cols  uint32 [PL, n, n, sp]        receive tensor [word, dst, src, slot]
-//   band  agg: int4 [ncp, n, 2, 32]    column, k-step (= source), m-tile,
-//                                      thread (ops/fused_open.py::
-//                                      _kernel_band), built on the device;
-//         per-column: int8 [n/2, n, 2048]  band_gemm tiles (ops/
-//                                      band_gemm.py::_gemm_band), re-laid
-//                                      on the device
+//   band  int8 [ceil(m/2), n, 2048]    band_gemm tiles (ops/band_gemm.py::
+//                                      _gemm_band) of m = n_out + 1 (agg:
+//                                      the rho-folded band) or n columns
+//                                      (per-column: the n-point encode
+//                                      band), re-laid on the device
 //   keep  uint32 [PL, n, n_outp, sp]   agg: rows < n_out extracted sharings,
 //                                      row n_out the check sharing, rows
-//                                      above it zero sharings (zero band
-//                                      columns: no dot is run)
+//                                      above it zero sharings
 //   z     uint32 [PL, n, sp]           agg: the check sharing alone
 //   chk   uint32 [PL, n, ncheckp, sp]  per-column: the 2t check columns
 //
 // What bounds it on an H100: operations. Per lane the int8 dot is
 // (n_out + 1) columns (agg) or n columns (per-column) x 32 diagonals x 32n
 // digits against 32n bytes read and 32 (n_outp + 1) or 32 (n_outp +
-// ncheckp) written; the fold/REDC epilogue on the CUDA cores comes on top
-// of the dot.
+// ncheckp) written; the fold epilogue on the CUDA cores comes on top of
+// the dot.
 //
-// The per-column mode runs on band_gemm.cuh's core (wgmma, the band in
-// 2 KB tiles streamed through shared memory, the epilogue straight from
-// the accumulators): lane g = dst * sp + sl, its n operands the sources'
-// words of that slot; ExtractPcEpi below stores each column to keep
-// and/or chk, both lane-contiguous in sl, and writes the zero check rows.
-// At n = 64 the planes leave room for 64-lane blocks only.
-//
-// The aggregate mode keeps the shape of open_direct.cu on field_core.cuh's
-// mma.sync core, at contraction length n. The digit planes of a lane take
-// 32n bytes (2 KB at n = 64), so a block holds 32 or 64 lanes and 16 or 8
-// column slots. Thread (slot, lane) builds the planes of sources slot,
-// slot+WG, ... (a warp reads 32 neighbouring slots of one source row);
-// after one barrier every warp walks its slot's columns on its own and
-// stores 8 words per lane and column, neighbouring lanes to neighbouring
-// addresses. Offsets pass 2^31 bytes: size_t throughout.
+// Both modes run on band_gemm.cuh's core (wgmma, the band in 2 KB tiles
+// streamed through shared memory, the epilogue straight from the
+// accumulators): lane g = dst * sp + sl, its n operands the sources' words
+// of that slot (LoadSrc). The epilogue policies below store each column to
+// its outputs, lane-contiguous in sl, and write the rows that are no
+// column of the dot as zero. At n = 64 the planes leave room for 64-lane
+// blocks only.
 #include "band_gemm.cuh"
 
 namespace hb {
 
-__device__ __forceinline__ void extract_body(
-    unsigned char* smem, const uint32_t* __restrict__ cols,
-    const int4* __restrict__ band, uint32_t* __restrict__ keep,
-    uint32_t* __restrict__ z, int n, int sp, int n_out, int n_outp, int tl,
-    const FoldConst& fc) {
-  const int wg = blockDim.x / tl;
-  const int tid = threadIdx.x;
-  const int laneid = tid & 31;
-  const int slot = tid / tl;               // column slot of this warp
-  const int lane = tid - slot * tl;        // lane within the block
-  const long long B = static_cast<long long>(n) * sp;
-  const long long b = static_cast<long long>(blockIdx.x) * tl + lane;
-  const bool valid = b < B;
-  const int dst = valid ? static_cast<int>(b / sp) : 0;
-  const int sl = valid ? static_cast<int>(b - static_cast<long long>(dst) * sp)
-                       : 0;
-  const int stride = tl + 8;
-  const BandSmem s = band_smem_carve(smem, n, tl, wg);
-  int* s_d = s.stage + (tid >> 5) * 32 * D_STRIDE;
+// The aggregated extraction's epilogue on the core: the dot has m =
+// n_out + 1 columns (the last tile half empty when m is odd). Column col
+// goes to keep [PL, n, n_outp, sp] at row col when col < n_outp, and
+// column n_out, the check sharing, also to z [PL, n, sp]. Keep rows n_out+1
+// .. n_outp-1 are no column of the dot: the threads of a lane write them
+// zero between them in finish().
+struct ExtractAggEpi {
+  gemm::Store keep, z;
+  int n_out, n_outp;
+  struct Lane {
+    long long kat, zat;   // the lane's offsets in keep and z
+    bool valid;
+  };
+  using Fetch = gemm::NoFetch;
 
-  // digit planes of the n received values; slot j takes sources j, j+wg, ...
-  for (int i = slot; i < n; i += wg) {
-    uint32_t carry = 0;
+  __device__ __forceinline__ Lane lane(const gemm::EncodeMap&, long long,
+                                       bool valid, long long grp,
+                                       long long c) const {
+    return {keep.base(grp, c), z.base(grp, c), valid};
+  }
+  __device__ __forceinline__ void fetch(const gemm::EncodeMap&, const Lane&,
+                                        int, Fetch&) const {}
+  __device__ __forceinline__ void apply(const gemm::EncodeMap&, Lane& ln,
+                                        int col, const uint32_t (&words)[PL],
+                                        const Fetch&) const {
+    if (!ln.valid) return;
+    keep.put(ln.kat, col, words);
+    z.put(ln.zat, col, words);
+  }
+  __device__ __forceinline__ void finish(const gemm::EncodeMap&,
+                                         const Lane& ln, int part,
+                                         int parts) const {
+    if (!ln.valid) return;
+    for (int r = n_out + 1 + part; r < n_outp; r += parts) {
+      uint32_t* o = keep.out + ln.kat + static_cast<long long>(r) * keep.ocol;
 #pragma unroll
-    for (int w = 0; w < PL; ++w) {
-      const uint32_t word =
-          valid ? cols[((static_cast<size_t>(w) * n + dst) * n + i) * sp + sl]
-                : 0u;
-      s.planes[(i * PL + w) * stride + lane] = balance_word(word, carry);
+      for (int w = 0; w < PL; ++w) o[w * keep.ow] = 0u;
     }
   }
+};
 
-  __syncthreads();                         // planes are ready
-
-  // no block barrier below: each warp walks its slot's columns on its own.
-  // Columns 0..n_out have a dot; the keep rows above are zero sharings.
-  const int ndot = n_out + 1;
-  const int ncols = n_outp > ndot ? n_outp : ndot;
-  for (int col = slot; col < ncols; col += wg) {
-    uint32_t words[PL];
-    if (col < ndot) {                      // warp-uniform
-      int acc[2][4][4];
-      band_mma_column(acc, s.planes, stride, lane - laneid,
-                      band + static_cast<size_t>(col) * n * 64, n, laneid);
-      int32_t ds[NBAL];
-      uint32_t limbs[L];
-      band_mma_diagonals(acc, s_d, laneid, ds);
-      fold_reduce_bal(ds, fc, limbs);
-      pack16(limbs, words);
-    } else {                               // zero column: zero sharing
-#pragma unroll
-      for (int w = 0; w < PL; ++w) words[w] = 0u;
-    }
-    if (!valid) continue;
-    if (col < n_outp) {
-#pragma unroll
-      for (int w = 0; w < PL; ++w)
-        keep[((static_cast<size_t>(w) * n + dst) * n_outp + col) * sp + sl] =
-            words[w];
-    }
-    if (col == n_out) {
-#pragma unroll
-      for (int w = 0; w < PL; ++w)
-        z[(static_cast<size_t>(w) * n + dst) * sp + sl] = words[w];
-    }
-  }
-}
-
-__global__ void randousha_extract_kernel(const uint32_t* __restrict__ cols,
-                                         const int4* __restrict__ band,
-                                         uint32_t* __restrict__ keep,
-                                         uint32_t* __restrict__ z, int n,
-                                         int sp, int n_out, int n_outp,
-                                         int tl, FoldConst fc) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  extract_body(smem, cols, band, keep, z, n, sp, n_out, n_outp, tl, fc);
+template <int MB>
+__global__ void __launch_bounds__(gemm::threads(MB), 1)
+    randousha_extract_kernel(const uint32_t* __restrict__ cols,
+                             const unsigned char* __restrict__ band,
+                             gemm::EncodeMap mp, gemm::WordFold wf,
+                             ExtractAggEpi epi) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  gemm::band_gemm_body<MB>(smem, gemm::LoadSrc{cols}, band, mp, wf, epi);
 }
 
 // The per-column extraction's epilogue on the core: column col goes to
@@ -183,44 +146,46 @@ __global__ void __launch_bounds__(gemm::threads(MB), 1)
                                 gemm::EncodeMap mp, gemm::WordFold wf,
                                 ExtractPcEpi epi) {
   extern __shared__ __align__(128) unsigned char smem[];
-  gemm::band_gemm_body<MB>(smem, cols, band, mp, wf, epi);
-}
-
-// Dynamic shared memory of a launch, allowed above 48 KB for `kernel`.
-template <typename Kernel>
-int prepare_extract(Kernel kernel, int n, int tl, int wg, size_t* smem) {
-  *smem = band_smem_bytes(n, tl, wg, 0);
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(*smem)));
-}
-
-FoldConst extract_fold_const(const uint32_t* init, int bias) {
-  FoldConst fc;
-  for (int j = 0; j < NL; ++j) fc.init[j] = init[j];
-  fc.bias = bias;
-  return fc;
+  gemm::band_gemm_body<MB>(smem, gemm::LoadSrc{cols}, band, mp, wf, epi);
 }
 
 }  // namespace hb
 
+// The lane map of both modes: lane dst * sp + sl, operand (source) i at
+// cols[((w*n + dst)*n + i)*sp + sl]; m columns.
+static hb::gemm::EncodeMap extract_map(int n, int sp, int m) {
+  const long long nl = static_cast<long long>(n), s = sp;
+  return {nl * s, s, nl * nl * s, nl * s, 1, s, n, m};
+}
+
+// cols [PL, n, n, sp]; band: the rho-folded band in band_gemm tiles
+// (n_out + 1 columns); keep [PL, n, n_outp, sp]; z [PL, n, sp]; mb: 64-lane
+// blocks per thread block (ops/band_gemm.py::_gemm_plan); fold:
+// _word_fold_consts(n).
 extern "C" int hb_randousha_extract(const void* cols, const void* band,
                                     void* keep, void* z, int n, int sp,
-                                    int n_out, int n_outp, int tl, int wg,
-                                    const uint32_t* init, int bias,
-                                    void* stream) {
-  size_t smem = 0;
-  const int rc =
-      hb::prepare_extract(hb::randousha_extract_kernel, n, tl, wg, &smem);
-  if (rc != 0) return rc;
-  const long long B = static_cast<long long>(n) * sp;
-  const unsigned grid = static_cast<unsigned>((B + tl - 1) / tl);
-  hb::randousha_extract_kernel<<<grid, tl * wg, smem,
-                                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(cols), static_cast<const int4*>(band),
-      static_cast<uint32_t*>(keep), static_cast<uint32_t*>(z), n, sp, n_out,
-      n_outp, tl, hb::extract_fold_const(init, bias));
-  return static_cast<int>(cudaGetLastError());
+                                    int n_out, int n_outp, int mb,
+                                    const uint32_t* fold, void* stream) {
+  const long long nl = static_cast<long long>(n), s = sp;
+  const hb::gemm::EncodeMap mp = extract_map(n, sp, n_out + 1);
+  const hb::ExtractAggEpi epi{
+      {static_cast<uint32_t*>(keep), nl * n_outp * s, n_outp * s, 1, s, 0,
+       n_out + 1 < n_outp ? n_out + 1 : n_outp},
+      {static_cast<uint32_t*>(z), nl * s, s, 1, 0, n_out, n_out + 1},
+      n_out, n_outp};
+  switch (mb) {
+    case 4:
+      return hb::gemm::launch<4>(hb::randousha_extract_kernel<4>, cols, band,
+                                 mp, epi, fold, stream);
+    case 2:
+      return hb::gemm::launch<2>(hb::randousha_extract_kernel<2>, cols, band,
+                                 mp, epi, fold, stream);
+    case 1:
+      return hb::gemm::launch<1>(hb::randousha_extract_kernel<1>, cols, band,
+                                 mp, epi, fold, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // cols [PL, n, n, sp]; band: the n-point encode band in band_gemm tiles
@@ -233,9 +198,7 @@ extern "C" int hb_randousha_extract_pc(const void* cols, const void* band,
                                        int mb, const uint32_t* fold,
                                        void* stream) {
   const long long nl = static_cast<long long>(n), s = sp;
-  // lane dst * sp + sl: operand (source) i at cols[((w*n + dst)*n + i)*sp
-  // + sl]
-  const hb::gemm::EncodeMap mp{nl * s, s, nl * nl * s, nl * s, 1, s, n, n};
+  const hb::gemm::EncodeMap mp = extract_map(n, sp, n);
   const hb::ExtractPcEpi epi{
       {static_cast<uint32_t*>(keep), nl * n_outp * s, n_outp * s, 1, s, 0,
        n_outp},

@@ -1,16 +1,18 @@
 """Host side of the Hopper band-encode core (``csrc/band_gemm.cuh``).
 
 The band matmul (``ops/band_matmul.py``), K1 and K2 of the three-kernel
-open (``ops/fused_open.py``) and the per-column extraction
+open (``ops/fused_open.py``), the deal and both extractions
 (``ops/fused_randousha.py``) run on one int8 GEMM core: per block, the
 lanes' balanced digit planes [lanes, 32k] against the folded band [32k, 32
 cols] through ``wgmma.m64n64k32.s8``, the band streamed through shared
 memory in 2 KB tiles, the fold straight from the accumulators, then the
 kernel's own epilogue policy (a store, K2's compare and count, the
-extraction's two stores). This module holds what the host does for it
-(the band's tile layout and its device re-lay, the launch plan, the fold
-constants) and plain twins of the layouts and of the epilogue, which the
-CPU tests hold against the reference.
+extractions' two stores). The planes' operands come from the kernel's
+source policy: loaded (``LoadSrc``) or, in the deal, drawn in registers
+(``DrawSrc``). This module holds what the host does for it (the band's
+tile layout and its device re-lay, the launch plan, the fold constants)
+and plain twins of the layouts, of the draw's REDC and of the epilogue,
+which the CPU tests hold against the reference.
 
 Layouts: wgmma's K-major canonical layout without swizzle. A matrix of R
 rows and 32 K bytes is stored as core matrices of 8 rows x 16 bytes, 128
@@ -209,6 +211,46 @@ def _half_partial(ds16):
         carry = x >> 32
     pw.append(carry)
     return pw
+
+
+def _redc384_words(x):
+    """Plain twin of band_gemm.cuh's redc384_words: 12 int64 tensors of
+    Threefry words (uint32 values; 384 bits T, little-endian) -> packed
+    int32 [PL, ...] of T * 2^-144 mod p. Four 32-bit Montgomery rounds and
+    one 16-bit round give the quotient of redc384's nine 16-bit rounds, a
+    value < 2p; one conditional subtract, as in the kernel, word for
+    word."""
+    t = [xi & M32 for xi in x] + [torch.zeros_like(x[0])]
+    for r in range(4):
+        m = (-t[r]) & M32             # t_r * (-p^-1) mod 2^32; p = 1 mod 2^32
+        c = torch.zeros_like(m)
+        for j in range(PL):
+            lo, hi = _mul_wide(m, P32[j])
+            s = lo + t[r + j] + c
+            t[r + j] = s & M32
+            c = hi + (s >> 32)
+        for j in range(r + PL, 13):
+            s = t[j] + c
+            t[j] = s & M32
+            c = s >> 32
+    m16 = (-t[4]) & 0xFFFF            # one 16-bit round
+    c = torch.zeros_like(m16)
+    for j in range(PL):
+        s = m16 * P32[j] + t[4 + j] + c
+        t[4 + j] = s & M32
+        c = s >> 32
+    t[12] = (t[12] + c) & M32
+    v = [((t[4 + j] >> 16) | (t[5 + j] << 16)) & M32 for j in range(PL)]
+    hi = t[12] >> 16
+    borrow = torch.zeros_like(hi)
+    dif = []
+    for j in range(PL):
+        d = v[j] - P32[j] - borrow
+        dif.append(d & M32)
+        borrow = (d < 0).to(torch.int64)
+    take = (hi != 0) | (borrow == 0)
+    out = torch.stack([torch.where(take, dif[j], v[j]) for j in range(PL)])
+    return torch.where(out >= 1 << 31, out - (1 << 32), out).to(torch.int32)
 
 
 def _fold_reduce_words(ds, fold: tuple):

@@ -37,7 +37,7 @@ import functools
 import numpy as np
 import torch
 
-from .band_gemm import _fold_array, _gemm_band, _gemm_plan, _relay_index
+from .band_gemm import _fold_array, _gemm_band, _gemm_plan
 from .limbs import L, MASK, N0, P, P_LIMBS, W
 
 TB = 128            # chunk tile of the reference's layouts (kept for parity)
@@ -212,17 +212,6 @@ def _kernel_band(band: np.ndarray, ncp: int, k: int) -> np.ndarray:
     frag = b[r[:, :, :, None], :, sdig[None, :, :, :], :]
     frag = np.ascontiguousarray(frag.transpose(4, 5, 0, 1, 2, 3))
     return frag.view(np.int32).reshape(ncp, k, 2, 32, 4)
-
-
-@functools.lru_cache(maxsize=None)
-def _kernel_band_index(ncp: int, k: int, rowlen: int) -> np.ndarray:
-    """int64 [ncp, k, 2, 32, 4, 4]: for every byte of `_kernel_band`'s
-    output its position in a flat reference band [NBAL*ncp, rowlen]. The
-    permutation is a property of the layout alone, so a band that only
-    exists on the device (the per-run folded extraction band) is re-laid
-    there with one gather through this index (band_gemm._relay_index)."""
-    idx = _relay_index(lambda b: _kernel_band(b, ncp, k), NBAL * ncp, rowlen)
-    return idx.reshape(ncp, k, 2, 32, 4, 4)
 
 
 def _smem_plan(k: int):

@@ -49,8 +49,9 @@ s at index c*k + s). The per-column check tensor is int32
 ``[nblk, njt, PL, JT, ncheckp, TBW]``).
 
 On CUDA tensors deal, extract (both modes) and check are the hand-written
-kernels ``csrc/randousha_deal.cu``, ``csrc/randousha_extract.cu`` (the
-per-column mode on the wgmma core ``csrc/band_gemm.cuh``) and
+kernels ``csrc/randousha_deal.cu``, ``csrc/randousha_extract.cu`` (both on
+the wgmma core ``csrc/band_gemm.cuh``: the deal draws its operands in the
+plane build, the extractions load them) and
 ``csrc/open_fused.cu::randousha_check_kernel``; ``_randousha_deal_plain``,
 ``_randousha_extract_plain`` and ``_randousha_check_plain`` are their plain
 PyTorch versions, used on the CPU and as the yardstick the kernels are held
@@ -66,15 +67,15 @@ import numpy as np
 import torch
 
 from . import montgomery as mont
-from .field_kernels import _key_ints, _threefry_redc384
-from .band_gemm import _gemm_band_index
+from .field_kernels import _key_ints, _threefry2x32, _threefry_redc384
+from .band_gemm import (_fold_array, _gemm_band, _gemm_band_index,
+                        _gemm_plan, _redc384_words)
 from .fused_open import (KMAX, NBAL, PL, _BAL_ROUNDS, _bal_bias,
                          _bal_fold_init, _band_dot_fold, _encode_band_np,
-                         _fold_consts, _folded_band_host, _gemm_args,
-                         _kernel_band, _kernel_band_index, _launch_stream,
-                         _open_bands, _pack16, _pad_band, _planes_of,
-                         _planes_of_packed, _r1_lanes_plain, _round8,
-                         _smem_plan)
+                         _fold_consts, _folded_band_host,
+                         _launch_stream, _open_bands, _pack16, _pad_band,
+                         _planes_of, _planes_of_packed, _r1_lanes_plain,
+                         _round8, _smem_plan)
 from .limbs import P, W, ints_to_limbs
 
 JT = 8                  # party-count granule of the reference's layouts
@@ -150,19 +151,44 @@ def _bal_digits_device(w):
 # Deal
 # ---------------------------------------------------------------------------
 
+def _deal_band_tiles(points: tuple, kk: int) -> np.ndarray:
+    """The deal kernel's band: the encode band of kk coefficients at the n
+    `points` in band_gemm tiles, int8 [ceil(n/2), kk, 2048]
+    (band_gemm._gemm_band; the same tiles as K1's band)."""
+    band, n1 = _encode_band_np(points, kk)
+    return _gemm_band(band[0], n1, kk, len(points))
+
+
 @functools.lru_cache(maxsize=None)
 def _encode_band_device(points: tuple, kk: int, device: torch.device):
     """The encode band of kk coefficients at `points` on `device`: the
     reference layout int8 [NBAL*n1, kcols] for the plain version, and for
-    CUDA also the kernel's fragment layout (see _kernel_band). -> (ref,
-    kern, n1)."""
+    CUDA also the deal kernel's tiles (_deal_band_tiles). -> (ref, kern,
+    n1)."""
     band, n1 = _encode_band_np(points, kk)
     ref = torch.from_numpy(band[0]).to(device)
     kern = None
     if device.type == "cuda":
-        kern = torch.from_numpy(np.ascontiguousarray(
-            _kernel_band(band[0], n1, kk)[:len(points)])).to(device)
+        kern = torch.from_numpy(_deal_band_tiles(points, kk)).to(device)
     return ref, kern, n1
+
+
+def _deal_coeff_limbs(key_data, n: int, t: int, degree: int, sp: int,
+                      slot0: int, nslot: int, device):
+    """The dealt polynomials' coefficients: canonical limbs int64
+    [L, kk, n*nslot], coefficient i of lane (src, slot) at [:, i,
+    src*nslot + slot - slot0], drawn at counters c0 = _CTR_TAG + 8*row
+    (row: the coefficient's global row, _deal_rows) and c1 = src*sp +
+    slot."""
+    rows = _deal_rows(t, degree)
+    src = torch.arange(n, dtype=torch.int64, device=device)[:, None]
+    slot = torch.arange(slot0, slot0 + nslot, dtype=torch.int64,
+                        device=device)[None, :]
+    c1 = ((src * sp + slot) & 0xFFFFFFFF).reshape(1, n * nslot)
+    c0 = (_CTR_TAG + 8 * torch.tensor(rows, dtype=torch.int64,
+                                      device=device))[:, None]
+    c0, c1 = torch.broadcast_tensors(c0, c1)         # [kk, n*nslot]
+    return _threefry_redc384(key_data, c0, c1)
 
 
 def _randousha_deal_plain(key_data, n: int, t: int, degree: int, sp: int,
@@ -173,44 +199,71 @@ def _randousha_deal_plain(key_data, n: int, t: int, degree: int, sp: int,
     (all sp slots by default). Counters do not depend on the slot window,
     so a window equals the same slice of the full tensor."""
     nslot = sp - slot0 if nslot is None else nslot
-    rows = _deal_rows(t, degree)
-    kk = len(rows)
+    kk = len(_deal_rows(t, degree))
     band, _, n1 = _encode_band_device(points, kk, torch.device(device))
     _count_plain(band)
-    src = torch.arange(n, dtype=torch.int64, device=device)[:, None]
-    slot = torch.arange(slot0, slot0 + nslot, dtype=torch.int64,
-                        device=device)[None, :]
-    c1 = ((src * sp + slot) & 0xFFFFFFFF).reshape(1, n * nslot)
-    c0 = (_CTR_TAG + 8 * torch.tensor(rows, dtype=torch.int64,
-                                      device=device))[:, None]
-    c0, c1 = torch.broadcast_tensors(c0, c1)         # [kk, n*nslot]
-    limbs = _threefry_redc384(key_data, c0, c1)      # int64 [L, kk, lanes]
+    limbs = _deal_coeff_limbs(key_data, n, t, degree, sp, slot0, nslot,
+                              device)                # int64 [L, kk, lanes]
     out = _pack16(_band_dot_fold(band, _planes_of(limbs), n1,
                                  _bal_fold_init(kk), _bal_bias(kk)))
     return out[:, :n].reshape(PL, n, n, nslot).contiguous()
 
 
+def _draw_words(key_data, kk: int, row1: int, lanes):
+    """Plain twin of band_gemm.cuh's DrawSrc: the packed words int32
+    [PL, kk, len(lanes)] of items (lane g, coefficient i) for the flat lane
+    indices `lanes` (int64): Threefry-2x32 at c0 = _CTR_TAG + 8*row + s,
+    c1 = g, row 0 for i = 0 and row1 + i - 1 above, then the kernel's
+    32-bit REDC (band_gemm._redc384_words)."""
+    k0, k1 = _key_ints(key_data)
+    rows = torch.tensor([0] + [row1 + i - 1 for i in range(1, kk)],
+                        dtype=torch.int64, device=lanes.device)
+    c0, c1 = torch.broadcast_tensors(_CTR_TAG + 8 * rows[:, None],
+                                     lanes[None, :] & 0xFFFFFFFF)
+    x = []
+    for s in range(6):
+        x.extend(_threefry2x32(k0, k1, c0 + s, c1))
+    return _redc384_words(x)
+
+
+def _deal_plan(k: int, nlanes: int, nsm: int = 132) -> int:
+    """64-lane blocks per thread block of the deal, chosen by measurement
+    on an H100 (tools/band_core_study.py; PERF.md §6): band_gemm's lane
+    tile (_gemm_plan, the most lanes whose planes fit and still fill the
+    card) was the fastest at both degrees, 256 lanes at k = 22 and 128 at
+    k = 43. A 64-lane block needs only 110,720 B of shared memory at
+    k = 22, but its 640 threads at 72 registers leave no room for a second
+    block on an SM, so one block's draw cannot run under another's dot."""
+    return _gemm_plan(k, nlanes, nsm)
+
+
 @functools.lru_cache(maxsize=None)
 def _deal_launcher(n: int, t: int, degree: int, sp: int, points: tuple,
                    device: torch.device):
-    """Everything a deal launch needs but the key: kernel entry, band on
-    the device, fold constants, launch shape."""
+    """Everything a deal launch needs but the key: kernel entry, band tiles
+    on the device, fold constants, lane tile."""
     from .._build import lib
     fn = lib().hb_randousha_deal
     rows = _deal_rows(t, degree)
     kk = len(rows)
     row1 = rows[1] if kk > 1 else 1
     _, band, _ = _encode_band_device(points, kk, device)
-    tl, wg = _smem_plan(kk)
-    init, bias = _fold_consts(kk)
+    fold = _fold_array(_bal_fold_init(kk), _bal_bias(kk))
+    nsm = torch.cuda.get_device_properties(device).multi_processor_count
+    plan = _deal_plan(kk, n * sp, nsm)
 
-    def launch(key_data):
+    def launch(key_data, plan=plan, out=None):
+        """plan: the lane tile (64-lane blocks per thread block); out: a
+        receive tensor to write into instead of a new one."""
         k0, k1 = _key_ints(key_data)
-        out = torch.empty((PL, n, n, sp), dtype=torch.int32, device=device)
-        rc = fn(k0, k1, band.data_ptr(), out.data_ptr(), n * sp, kk, row1,
-                n, tl, wg, init, bias, _launch_stream(out))
+        if out is None:
+            out = torch.empty((PL, n, n, sp), dtype=torch.int32,
+                              device=device)
+        rc = fn(k0, k1, band.data_ptr(), out.data_ptr(), n, sp, kk, row1,
+                plan, fold, _launch_stream(out))
         return rc, out
 
+    launch.kk = kk
     return launch
 
 
@@ -274,58 +327,70 @@ def _randousha_extract_plain(cols, band, n_out: int, n_outp: int,
     return torch.stack(keep, 1).contiguous(), torch.stack(rest, 1).contiguous()
 
 
+def _tiles_cache(relay):
+    """tiles_of(band) -> band's bytes gathered through `relay` (a
+    band_gemm tile layout), the last result kept while the same band comes
+    back unmodified: the same tensor, or a view at the same place of the
+    same base (the aggregated extraction gets `band[0]` of the run's band,
+    a new view each call), at the same version."""
+    cached = None              # (the base, weakly; the view's key; tiles)
+
+    def tiles_of(band):
+        nonlocal cached
+        base = band if band._base is None else band._base
+        key = (band._version, band.storage_offset(), tuple(band.shape),
+               band.stride())
+        if cached is None or cached[0]() is not base or cached[1] != key:
+            cached = (weakref.ref(base), key, band.reshape(-1)[relay])
+        return cached[2]
+
+    return tiles_of
+
+
 @functools.lru_cache(maxsize=None)
 def _extract_launcher(n: int, n_out: int, n_outp: int, ncp: int, kcn: int,
                       ncheckp: int | None, device: torch.device):
     """Everything an extract launch needs but its operands: kernel entry,
-    the gather index that re-lays a reference-layout band for the kernel
-    (the device twin of _kernel_band in aggregate mode, of _gemm_band in
-    per-column mode), fold constants, launch shape. The per-column band is
-    a constant of the run: its re-laid copy is kept while the same band
-    tensor, unmodified, comes back."""
+    the gather that re-lays a reference-layout band into band_gemm tiles
+    (n_out + 1 columns of the rho-folded band in aggregate mode, all n of
+    the encode band in per-column mode) and the launch plan. The re-laid
+    copy is kept while the same band, unmodified, comes back: the run's
+    folded band serves both degrees, the per-column band every run."""
     from .._build import lib
-    if ncheckp is None:
-        relay = torch.from_numpy(_kernel_band_index(ncp, n, kcn)).to(device)
-        tl, wg = _smem_plan(n)
-        init, bias = _fold_consts(n)
+    m = n if ncheckp is not None else n_out + 1
+    tiles_of = _tiles_cache(torch.from_numpy(
+        _gemm_band_index(ncp, n, m, kcn)).to(device))
 
-        def launch(cols, band):
-            sp = cols.shape[-1]
-            frag = band.reshape(-1)[relay]            # int8, fragment order
+    nsm = torch.cuda.get_device_properties(device).multi_processor_count
+    fold = _fold_array(_bal_fold_init(n), _bal_bias(n))
+
+    def launch(cols, band, keep=None, out2=None, plan=None):
+        """keep, out2: outputs to write into instead of new ones (out2 is z
+        in aggregate mode, chk in per-column mode); plan: the lane tile,
+        _gemm_plan's by default."""
+        sp = cols.shape[-1]
+        plan = plan or _gemm_plan(n, n * sp, nsm)
+        tiles = tiles_of(band)
+        if keep is None:
             keep = torch.empty((PL, n, n_outp, sp), dtype=torch.int32,
                                device=device)
-            z = torch.empty((PL, n, sp), dtype=torch.int32, device=device)
+        if ncheckp is None:
+            if out2 is None:
+                out2 = torch.empty((PL, n, sp), dtype=torch.int32,
+                                   device=device)
             rc = lib().hb_randousha_extract(
-                cols.data_ptr(), frag.data_ptr(), keep.data_ptr(),
-                z.data_ptr(), n, sp, n_out, n_outp, tl, wg, init, bias,
-                _launch_stream(cols))
-            return rc, keep, z
-
-        return launch
-
-    relay = torch.from_numpy(_gemm_band_index(ncp, n, n, kcn)).to(device)
-    cached = None              # (the band, weakly; its version; its tiles)
-
-    def tiles_of(band):
-        nonlocal cached
-        if cached is None or cached[0]() is not band \
-                or cached[1] != band._version:
-            cached = (weakref.ref(band), band._version,
-                      band.reshape(-1)[relay])
-        return cached[2]
-
-    def launch(cols, band):
-        sp = cols.shape[-1]
-        tiles = tiles_of(band)
-        keep = torch.empty((PL, n, n_outp, sp), dtype=torch.int32,
-                           device=device)
-        chk = torch.empty((PL, n, ncheckp, sp), dtype=torch.int32,
-                          device=device)
+                cols.data_ptr(), tiles.data_ptr(), keep.data_ptr(),
+                out2.data_ptr(), n, sp, n_out, n_outp,
+                plan, fold, _launch_stream(cols))
+            return rc, keep, out2
+        if out2 is None:
+            out2 = torch.empty((PL, n, ncheckp, sp), dtype=torch.int32,
+                               device=device)
         rc = lib().hb_randousha_extract_pc(
             cols.data_ptr(), tiles.data_ptr(), keep.data_ptr(),
-            chk.data_ptr(), n, sp, n_out, n_outp, ncheckp,
-            *_gemm_args(n, n * sp, device), _launch_stream(cols))
-        return rc, keep, chk
+            out2.data_ptr(), n, sp, n_out, n_outp, ncheckp,
+            plan, fold, _launch_stream(cols))
+        return rc, keep, out2
 
     return launch
 
@@ -333,9 +398,9 @@ def _extract_launcher(n: int, n_out: int, n_outp: int, ncp: int, kcn: int,
 def _randousha_extract_cuda(cols, band, n_out: int, n_outp: int,
                             ncheckp: int | None):
     """Launch csrc/randousha_extract.cu (randousha_extract_kernel, or
-    randousha_extract_pc_kernel on csrc/band_gemm.cuh when ncheckp is
-    given) on a receive tensor and a reference-layout band, both on the
-    card."""
+    randousha_extract_pc_kernel when ncheckp is given; both on
+    csrc/band_gemm.cuh) on a receive tensor and a reference-layout band,
+    both on the card."""
     global launches_extract, launches_extract_pc
     n = cols.shape[2]
     ncp = band.shape[0] // NBAL

@@ -1,4 +1,4 @@
-"""Where the wgmma band core's time goes (rows 3, 16, 17 and 5b of
+"""Where the wgmma band core's time goes (rows 3, 4, 5a, 5b, 16 and 17 of
 PERF.md).
 
     python3 honeybadgermpc_tpu_torch/tools/band_core_study.py [--parent DIR]
@@ -6,11 +6,12 @@ PERF.md).
 Needs one CUDA card and nvcc. Builds knock-out variants of
 ``csrc/band_gemm.cuh`` (patched copies under the package's build
 directory: the sources in the checkout stay as they are) with
-``band_matmul.cu``, ``open_fused.cu`` and ``randousha_extract.cu``, and
-times each at the main-path shapes of band_matmul, K1, K2 and the
-per-column extraction with CUDA events, on the launch plan the wrappers
-choose. K2 and the extraction run on consistent shares, as on their paths
-(no mismatch, so no atomics but where the dot is knocked out). Variants:
+``band_matmul.cu``, ``open_fused.cu``, ``randousha_extract.cu`` and
+``randousha_deal.cu``, and times each at the main-path shapes of
+band_matmul, K1, K2, both extractions and the deal with CUDA events, on
+the launch plan the wrappers choose. K2 and the extractions run on
+consistent shares, as on their paths (no mismatch, so no atomics but where
+the dot is knocked out). Variants:
 
   final           the sources as they are
   no_epilogue     the dot, the band stream and the planes; no fold, no
@@ -18,23 +19,28 @@ choose. K2 and the extraction run on consistent shares, as on their paths
   no_stores       everything but the core's stores (band_matmul, K1, the
                   extraction)
   no_dot          everything but the wgmma (the accumulators stay 0)
-  no_planes       everything but the plane build
+  no_planes       everything but the plane build (for the deal: no draw)
   stream_only     the band stream alone
   two_consumers   2 consumer warpgroups whatever the lane tile
   one_step_slots  one k-step per bulk copy (8 slots of 2 KB per ring)
   rows_out        band_matmul writing [PL, B, m] instead of [PL, m, B]
   fetch_after_fold  K2 loading a lane's received words after its fold
                   instead of ahead (the other kernels fetch nothing)
+  cluster2        blocks in clusters of two that share the band stream
+                  (each copies half of every slot, multicast to both;
+                  the grid rounded up to an even count)
 
 K2 is timed on final, no_epilogue, no_dot, stream_only and
 fetch_after_fold, and on final at every lane tile that fits shared memory
-besides the planned one; the extraction on the first four. With
-``--parent DIR`` (a checkout of another commit of the port, e.g. its
-parent unpacked with ``git archive``) the script also times
-that tree's band_matmul, K1, K2 and per-column extraction through their
-wrappers, before and after the variants, in separate processes on the
-same card. Prints one JSON line per measurement; the card's name and power
-limit come first.
+besides the planned one; the per-column extraction on the first four; the
+deal (at t and 2t: k = 22 and 43) and the aggregated extraction (n_out + 1
+= 23 columns) on final, no_epilogue, no_dot, no_planes and stream_only at
+their plans, on final at every other lane tile that fits, and on
+cluster2 at every lane tile that fits. With ``--parent DIR`` (a checkout of another commit of the port, e.g. its parent unpacked
+with ``git archive``) the script also times that tree's band_matmul, K1,
+K2, both extractions and the deal through their wrappers, before and after
+the variants, in separate processes on the same card. Prints one JSON
+line per measurement; the card's name and power limit come first.
 """
 
 import argparse
@@ -53,9 +59,105 @@ BAND_SHAPES = ((16896, 22, 64), (262144, 22, 64), (262144, 43, 64),
 K1_SHAPES = ((64, 22, 7820), (64, 43, 4001))
 K2_SHAPES = K1_SHAPES
 EXTRACT_PC = (64, 21, 4096)           # n, t, slots: 262,144 lanes, k = 64
+DEAL = EXTRACT_PC                     # the deal and the aggregated extraction
 NEW_VARIANTS = ("final", "no_epilogue", "no_dot", "stream_only")
 K2_VARIANTS = NEW_VARIANTS + ("fetch_after_fold",)
-SOURCES = ("band_matmul.cu", "open_fused.cu", "randousha_extract.cu")
+DEAL_VARIANTS = ("final", "no_epilogue", "no_dot", "no_planes",
+                 "stream_only")
+SOURCES = ("band_matmul.cu", "open_fused.cu", "randousha_extract.cu",
+           "randousha_deal.cu")
+
+
+# The cluster2 variant: every core kernel in thread-block clusters of two
+# blocks (neighbouring lane tiles, the same band walk) that share their
+# band stream. Each producer copies half of every ring slot and multicasts
+# it to both blocks, so each block reads half the band from L2. A slot is
+# refilled only when the consumers of both blocks are done with it: its
+# empty mbarrier counts both blocks' consumer warps (a remote arrive for
+# the peer's), but for the last SLOTS loads of a ring, which no producer
+# waits for (so no arrive reaches a block that may have exited). The
+# remote arrive releases at CTA scope: a cluster-scope release would also
+# wait for the warp's outstanding global stores.
+_CLUSTER_HELPERS = """\
+__device__ __forceinline__ void bulk_load_multicast(uint32_t dst,
+                                                    const void* src,
+                                                    uint32_t bytes,
+                                                    uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1], %2, [%3], %4;\\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar), "h"(static_cast<uint16_t>(3))
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_peer(uint32_t bar,
+                                                 uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\\n"
+               : "=r"(remote)
+               : "r"(bar), "r"(rank));
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\\n" ::"r"(
+                   remote)
+               : "memory");
+}
+
+"""
+
+
+def _cluster2():
+    return [
+        ("// Shared-memory matrix descriptor, no swizzle",
+         _CLUSTER_HELPERS + "// Shared-memory matrix descriptor, no swizzle"),
+        ("mbar_init(empty_s + 8 * s, 4);", "mbar_init(empty_s + 8 * s, 8);"),
+        ("  __syncthreads();\n  // Tile ct goes to consumer",
+         "  uint32_t rank;\n"
+         "  asm volatile(\"mov.u32 %0, %%cluster_ctarank;\\n\" : \"=r\"(rank));\n"
+         "  asm volatile(\"barrier.cluster.arrive.release.aligned;\\n\"\n"
+         "               \"barrier.cluster.wait.acquire.aligned;\\n\" ::: "
+         "\"memory\");\n"
+         "  // Tile ct goes to consumer"),
+        ("    bulk_load(ring_s + slot * SLOT_BYTES,\n"
+         "              band + (static_cast<size_t>(ct) * k + kk0) * "
+         "STEP_BYTES,\n"
+         "              steps * STEP_BYTES, full_s + 8 * slot);\n",
+         "    const uint32_t part = steps * STEP_BYTES / 2;\n"
+         "    bulk_load_multicast(ring_s + slot * SLOT_BYTES + rank * part,\n"
+         "                        band + (static_cast<size_t>(ct) * k + kk0) *"
+         " STEP_BYTES + rank * part,\n"
+         "                        part, full_s + 8 * slot);\n"),
+        ("  const uint32_t planes_s = smem_u32(planes);\n",
+         "  const uint32_t planes_s = smem_u32(planes);\n"
+         "  const int nload_c = ((ntiles - wgi + CONSUMERS - 1) / CONSUMERS)"
+         " * nst;\n"
+         "  auto release = [&](int ld) {\n"
+         "    const uint32_t bar = empty_s + 8 * (wgi * SLOTS + ld % SLOTS);\n"
+         "    mbar_arrive(bar);\n"
+         "    if (ld + SLOTS < nload_c) mbar_arrive_peer(bar, rank ^ 1u);\n"
+         "  };\n"),
+        ("mbar_arrive(empty_s + 8 * (wgi * SLOTS + (sr - 1) % SLOTS));",
+         "release(sr - 1);"),
+        ("  const unsigned grid =\n"
+         "      static_cast<unsigned>((mp.nlanes + 64 * MB - 1) / (64 * MB));\n"
+         "  kern<<<grid, threads(MB), smem, static_cast<cudaStream_t>(stream)"
+         ">>>(\n"
+         "      src, static_cast<const unsigned char*>(band), mp, wf, epi);\n",
+         "  const long long blocks = (mp.nlanes + 64 * MB - 1) / (64 * MB);\n"
+         "  cudaLaunchConfig_t cfg = {};\n"
+         "  cfg.gridDim = dim3(static_cast<unsigned>((blocks + 1) / 2 * 2));\n"
+         "  cfg.blockDim = dim3(threads(MB));\n"
+         "  cfg.dynamicSmemBytes = smem;\n"
+         "  cfg.stream = static_cast<cudaStream_t>(stream);\n"
+         "  cudaLaunchAttribute attr[1];\n"
+         "  attr[0].id = cudaLaunchAttributeClusterDimension;\n"
+         "  attr[0].val.clusterDim.x = 2;\n"
+         "  attr[0].val.clusterDim.y = 1;\n"
+         "  attr[0].val.clusterDim.z = 1;\n"
+         "  cfg.attrs = attr;\n"
+         "  cfg.numAttrs = 1;\n"
+         "  err = cudaLaunchKernelEx(&cfg, kern, src,\n"
+         "      static_cast<const unsigned char*>(band), mp, wf, epi);\n"
+         "  if (err != cudaSuccess) return static_cast<int>(err);\n"),
+    ]
 
 
 def _patches():
@@ -77,6 +179,7 @@ def _patches():
                            ("constexpr int SLOTS = 2;",
                             "constexpr int SLOTS = 8;")],
         "rows_out": [],
+        "cluster2": _cluster2(),
         "fetch_after_fold": [
             ("    typename Epi::Fetch fx;\n    epi.fetch(mp, ln[0], col, fx);"
              "\n", ""),
@@ -150,8 +253,14 @@ def build_variants(work):
                                          u32p, vp]
         lib.hb_randousha_extract_pc.argtypes = [vp, vp, vp, vp, i32, i32,
                                                 i32, i32, i32, i32, u32p, vp]
+        lib.hb_randousha_extract.argtypes = [vp, vp, vp, vp, i32, i32, i32,
+                                             i32, i32, u32p, vp]
+        lib.hb_randousha_deal.argtypes = [ctypes.c_uint32, ctypes.c_uint32,
+                                          vp, vp, i32, i32, i32, i32, i32,
+                                          u32p, vp]
         for fn in (lib.hb_band_matmul, lib.hb_open_fused_k1,
-                   lib.hb_open_fused_k2, lib.hb_randousha_extract_pc):
+                   lib.hb_open_fused_k2, lib.hb_randousha_extract_pc,
+                   lib.hb_randousha_extract, lib.hb_randousha_deal):
             fn.restype = i32
         libs[name] = lib
     return libs
@@ -198,7 +307,7 @@ def time_variants(work):
         mb = _gemm_plan(k, b, nsm)
         out = torch.empty((8, b, m), dtype=torch.int32, device=dev)
         for name, lib in libs.items():
-            if name == "fetch_after_fold":
+            if name in ("fetch_after_fold", "cluster2"):
                 continue
             def run():
                 return lib.hb_band_matmul(a.data_ptr(), band.data_ptr(),
@@ -218,7 +327,7 @@ def time_variants(work):
         mb = _gemm_plan(k, n * c, nsm)
         out = torch.empty((8, n, n, c), dtype=torch.int32, device=dev)
         for name, lib in libs.items():
-            if name in ("rows_out", "fetch_after_fold"):
+            if name in ("rows_out", "fetch_after_fold", "cluster2"):
                 continue
             def run():
                 return lib.hb_open_fused_k1(view.data_ptr(), kern.data_ptr(),
@@ -267,6 +376,72 @@ def time_variants(work):
             raise SystemExit(f"extract_pc {name} launch failed")
         say(kernel="randousha_extract_pc", variant=name, n=n, t=t, sp=sp,
             lanes_per_block=64 * mb, ms=ev_ms(run))
+    del keep, chk, cols, tiles
+    time_deal_variants(libs, nsm, stream)
+
+
+def tile_runs(k, plan):
+    """(variant, lane tile) pairs the deal and the aggregated extraction
+    are timed on: DEAL_VARIANTS at the plan, final at every other tile
+    that fits, cluster2 at every tile that fits."""
+    from honeybadgermpc_tpu_torch.ops import band_gemm as bg
+    fit = [b for b in (4, 2, 1) if bg.smem_bytes(k, b) <= bg.SMEM_MAX]
+    return ([(v, plan) for v in DEAL_VARIANTS]
+            + [("final", b) for b in fit if b != plan]
+            + [("cluster2", b) for b in fit])
+
+
+def time_deal_variants(libs, nsm, stream):
+    """The deal at t and 2t at every lane tile that fits, and the
+    aggregated extraction of its degree-t receive tensor, on the variants
+    of DEAL_VARIANTS."""
+    import torch
+    from honeybadgermpc_tpu_torch.ops import band_gemm as bg
+    from honeybadgermpc_tpu_torch.ops import fused_open as fo
+    from honeybadgermpc_tpu_torch.ops import fused_randousha as fr
+    dev = torch.device("cuda")
+    n, t, sp = DEAL
+    pts = fr._party_points(n)
+    key = (77, 5)
+    k0, k1 = key
+    out = torch.empty((8, n, n, sp), dtype=torch.int32, device=dev)
+    for degree in (t, 2 * t):
+        rows = fr._deal_rows(t, degree)
+        kk = len(rows)
+        tiles = torch.from_numpy(fr._deal_band_tiles(pts, kk)).to(dev)
+        fold = bg._fold_array(fo._bal_fold_init(kk), fo._bal_bias(kk))
+        plan = fr._deal_plan(kk, n * sp, nsm)
+        for name, b in tile_runs(kk, plan):
+            def run():
+                return libs[name].hb_randousha_deal(
+                    k0, k1, tiles.data_ptr(), out.data_ptr(), n, sp, kk,
+                    rows[1], b, fold, stream)
+            if run() != 0:
+                raise SystemExit(f"deal {name} launch failed")
+            say(kernel="randousha_deal", variant=name, n=n, t=t,
+                degree=degree, sp=sp, lanes_per_block=64 * b,
+                planned=b == plan, ms=ev_ms(run))
+    del out
+    cols = fr.randousha_deal(key, n, t, t, sp, pts, dev)
+    calls = fr._randousha_calls(n, t, sp, pts, device=dev)
+    n_out, n_outp = calls.meta[:2]
+    band = calls.folded_band(key)[0]
+    tiles = band.reshape(-1)[torch.from_numpy(bg._gemm_band_index(
+        band.shape[0] // 32, n, n_out + 1, band.shape[1])).to(dev)]
+    fold = bg._fold_array(fo._bal_fold_init(n), fo._bal_bias(n))
+    plan = bg._gemm_plan(n, n * sp, nsm)
+    keep = torch.empty((8, n, n_outp, sp), dtype=torch.int32, device=dev)
+    z = torch.empty((8, n, sp), dtype=torch.int32, device=dev)
+    for name, b in tile_runs(n, plan):
+        def run():
+            return libs[name].hb_randousha_extract(
+                cols.data_ptr(), tiles.data_ptr(), keep.data_ptr(),
+                z.data_ptr(), n, sp, n_out, n_outp, b, fold, stream)
+        if run() != 0:
+            raise SystemExit(f"extract {name} launch failed")
+        say(kernel="randousha_extract", variant=name, n=n, t=t, sp=sp,
+            columns=n_out + 1, lanes_per_block=64 * b, planned=b == plan,
+            ms=ev_ms(run))
 
 
 def k2_input(n, k, c):
@@ -334,6 +509,20 @@ def time_tree(tag):
     say(kernel="randousha_extract_pc", tree=tag, n=n, t=t, sp=sp,
         ms=ev_ms(lambda: fr.randousha_extract(cols, band, n - 2 * t, 24,
                                               48)))
+    del cols, band
+    n, t, sp = DEAL
+    pts = fr._party_points(n)
+    key = (77, 5)
+    for degree in (t, 2 * t):
+        say(kernel="randousha_deal", tree=tag, n=n, t=t, degree=degree,
+            sp=sp, ms=ev_ms(lambda: fr.randousha_deal(key, n, t, degree, sp,
+                                                      pts, dev)))
+    cols = fr.randousha_deal(key, n, t, t, sp, pts, dev)
+    calls = fr._randousha_calls(n, t, sp, pts, device=dev)
+    n_out, n_outp = calls.meta[:2]
+    band = calls.folded_band(key)[0]
+    say(kernel="randousha_extract", tree=tag, n=n, t=t, sp=sp,
+        ms=ev_ms(lambda: fr.randousha_extract(cols, band, n_out, n_outp)))
 
 
 def main():

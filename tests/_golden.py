@@ -21,7 +21,9 @@ DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 MODULES = ("test_torch_slice_robust_open", "test_torch_rs_fnt",
            "test_torch_offline_eager", "test_torch_open_fused",
            "test_torch_slice_triples", "test_torch_randousha",
-           "test_torch_randousha_per_column")
+           "test_torch_randousha_per_column", "test_torch_fp_matmul",
+           "test_torch_slice_ntl", "test_torch_ntl",
+           "test_torch_sqrt_mul_add", "test_torch_gao")
 
 
 def golden(name):

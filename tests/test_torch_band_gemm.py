@@ -17,6 +17,8 @@ from honeybadgermpc_tpu_torch.ops import band_gemm as bg
 from honeybadgermpc_tpu_torch.ops import fused_open as port_fo
 from honeybadgermpc_tpu_torch.ops.limbs import P
 
+from _jax_memory import release_jax_memory  # noqa: F401
+
 TILE = bg.STEP_BYTES
 
 

@@ -1,12 +1,15 @@
 """Port parity: the kernels on the wgmma band core that bring their own
-epilogue policy (csrc/band_gemm.cuh): K2 of the three-kernel open
-(csrc/open_fused.cu, K2Epi) and the per-column extraction
-(csrc/randousha_extract.cu, ExtractPcEpi). The kernels run only on the
-card (chip_smoke.py holds them against their plain versions there); here
-their host layouts are held against the reference's bands, and a plain
-model of what their epilogues do (the lane maps of their C entries, the
-core's split of (lane, column) pairs over consumer threads, the policy's
-store, compare and count) is held against the port's plain versions.
+operand source or epilogue policy (csrc/band_gemm.cuh): K2 of the
+three-kernel open (csrc/open_fused.cu, K2Epi), the per-column and the
+aggregated extraction (csrc/randousha_extract.cu, ExtractPcEpi and
+ExtractAggEpi) and the deal (csrc/randousha_deal.cu, DrawSrc). The kernels
+run only on the card (chip_smoke.py holds them against their plain
+versions there); here their host layouts are held against the reference's
+bands, and a plain model of what they do (the lane maps of their C
+entries, the drawn operands, the planes and the dot as the descriptors
+walk them, the core's split of (lane, column) pairs over consumer threads,
+the policy's store, compare and count) is held against the port's plain
+versions and the reference's golden stage outputs (tests/_golden.py).
 Tolerance: exact equality everywhere."""
 
 import numpy as np
@@ -14,10 +17,16 @@ import pytest
 import torch
 
 from honeybadgermpc_tpu.ops import fused_open as ref_fo
+from honeybadgermpc_tpu_torch.interop import (from_reference_receive,
+                                              to_reference_packed)
 from honeybadgermpc_tpu_torch.ops import band_gemm as bg
 from honeybadgermpc_tpu_torch.ops import fused_open as fo
 from honeybadgermpc_tpu_torch.ops import fused_randousha as fr
+from honeybadgermpc_tpu_torch.ops import montgomery as mont
 from honeybadgermpc_tpu_torch.ops.limbs import P
+
+from _golden import golden
+from _jax_memory import release_jax_memory  # noqa: F401
 
 TILE = bg.STEP_BYTES
 M32 = 0xFFFFFFFF
@@ -238,3 +247,237 @@ def test_extract_pc_two_output_store_model_is_the_plain_extraction(n, t, mb):
     assert torch.equal(keep, want_keep) and torch.equal(chk, want_chk)
     assert torch.equal(keep[:, :, n_out:], chk[:, :, :n_outp - n_out])
     assert not chk[:, :, 2 * t:].any()
+
+
+# -- the deal (DrawSrc) and the aggregated extraction (ExtractAggEpi) --------
+
+GN, GT, GSP, GKEY = 8, 2, 128, (5, 6)       # the golden stages' run
+CPU = torch.device("cpu")
+
+
+@pytest.mark.parametrize("n,kk", [(64, 22), (64, 43), (8, 3), (8, 5)])
+def test_deal_tiles_walked_by_their_descriptor_are_the_encode_band(n, kk):
+    """The deal's band (n columns, kk = t+1 or 2t+1 k-steps, a full last
+    tile) read through the B descriptor is the reference's encode band."""
+    points = fr._party_points(n)
+    band, n1 = ref_fo._bands_np(points, kk)[0]
+    _walk_tiles(fr._deal_band_tiles(points, kk), band[0], n1, kk, n)
+
+
+def test_redc384_words_is_the_16_bit_redc():
+    """The draw's 32-bit REDC (four 32-bit rounds, one 16-bit round) gives
+    redc384's words: random 384-bit values and the edges (0, 2^384 - 1,
+    multiples of p and of p * 2^144, one below and above them)."""
+    rng = np.random.default_rng(2024)
+    vals = [0, 1, (1 << 384) - 1, P, P - 1, P << 144, (P << 144) - 1,
+            (P << 144) + 1, ((1 << 384) - 1) // P * P, P << 128,
+            (2 * P) << 144, (1 << 255) << 128]
+    vals += [int.from_bytes(rng.bytes(48), "little") for _ in range(500)]
+    x = [torch.tensor([(v >> (32 * j)) & M32 for v in vals],
+                      dtype=torch.int64) for j in range(12)]
+    rows = []
+    for w in x:
+        rows += [w & 0xFFFF, w >> 16]
+    want = fo._pack16(mont._redc384_rows(rows))
+    assert torch.equal(bg._redc384_words(x), want)
+
+
+@pytest.mark.parametrize("degree", [GT, 2 * GT])
+@pytest.mark.parametrize("mb", [1, 2, 4])
+def test_draw_src_planes_are_the_plain_deal_coefficients(degree, mb):
+    """DrawSrc's plain twin (the drawn words of lane g = src*sp + slot,
+    coefficient i) through the plane build: every block's planes, walked
+    by the A descriptor, are the balanced digits of the plain deal's
+    coefficients; lanes past the end (none here) would be zero."""
+    rows = fr._deal_rows(GT, degree)
+    kk, tm, lanes = len(rows), 64 * mb, GN * GSP
+    words = fr._draw_words(GKEY, kk, rows[1], torch.arange(lanes))
+    img = bg._gemm_planes(words, tm)
+    limbs = fr._deal_coeff_limbs(GKEY, GN, GT, degree, GSP, 0, GSP, CPU)
+    want = fo._planes_of(limbs).reshape(32, kk, lanes)
+    for blk in range(lanes // tm):
+        for i in range(kk):
+            got = bg._desc_walk(img[blk], 2 * i * (tm // 8) * 128, 16 * tm,
+                                128, tm).view(np.int8)
+            assert np.array_equal(got.T, want[:, i, blk * tm:(blk + 1) * tm]
+                                  .numpy()), (blk, i)
+
+
+def _owned(nlanes, m, mb):
+    """(lane, column) pairs of band_gemm_body<mb>'s consumer threads as
+    numpy arrays (lanes < nlanes), and (lane, part, parts) of the finish
+    calls; every pair and every part of a lane exactly once."""
+    g, c, fin = [], [], []
+    for lanes, cols, part, parts in _owners(nlanes, m, mb):
+        for lane in lanes:
+            if lane < nlanes:
+                g += [lane] * len(cols)
+                c += cols
+                fin.append((lane, part, parts))
+    assert len(set(zip(g, c))) == len(g)
+    g, c = torch.tensor(g), torch.tensor(c)
+    keep = c < m
+    assert int(keep.sum()) == nlanes * m
+    return g[keep], c[keep], fin
+
+
+def _core_words(img, tiles, tm, k, m):
+    """The core's dot as its descriptors walk it, then its fold: per block,
+    tile and k-step, A (the planes; LBO 16 tm, SBO 128) times B^T (the band
+    tile; LBO 1024, SBO 128), accumulator row r of tile ct being column
+    2 ct + colt[r], diagonal diag[r]; then _fold_reduce_words. -> int64
+    [PL, m, lanes] (uint32 values)."""
+    colt, diag = bg._tile_rows()
+    nblk, ntiles = img.shape[0], tiles.shape[0]
+    d = np.zeros((32, 2 * ntiles, nblk * tm), np.int64)
+    for blk in range(nblk):
+        a = np.stack([bg._desc_walk(img[blk], 2 * kk * (tm // 8) * 128,
+                                    16 * tm, 128, tm) for kk in range(k)])
+        a = a.view(np.int8).astype(np.int64)            # [k, tm, 32]
+        for ct in range(ntiles):
+            b = np.stack([bg._desc_walk(tiles[ct, kk], 0, 1024, 128, 64)
+                          for kk in range(k)]).astype(np.int64)
+            acc = np.einsum("kls,krs->rl", a, b)         # [64 rows, tm]
+            d[diag, 2 * ct + colt, blk * tm:(blk + 1) * tm] = acc
+    fold = bg._word_fold_consts(fo._bal_fold_init(k), fo._bal_bias(k))
+    words = bg._fold_reduce_words([torch.from_numpy(d[r, :m])
+                                   for r in range(32)], fold)
+    return words.to(torch.int64) & M32
+
+
+def _signed(x, shape):
+    x = torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+    return x.reshape(shape)
+
+
+def _deal_model(key, n, t, degree, sp, mb):
+    """hb_randousha_deal as the kernel runs it: one group of B = n*sp
+    lanes (lane g = src*sp + slot), DrawSrc's words, the planes and the dot
+    on the deal's tiles, the fold, and StoreEpi's map: column col (the
+    destination) of lane g at out[w*n*B + col*B + g]. The output starts as
+    junk, so a word nobody writes shows."""
+    rows = fr._deal_rows(t, degree)
+    kk, B, tm = len(rows), n * sp, 64 * mb
+    words = fr._draw_words(key, kk, rows[1], torch.arange(B))
+    img = bg._gemm_planes(words, tm)
+    res = _core_words(img, fr._deal_band_tiles(tuple(range(1, n + 1)), kk),
+                      tm, kk, n)
+    g, c, _ = _owned(B, n, mb)
+    out = torch.full((8 * n * B,), JUNK, dtype=torch.int64)
+    for w in range(8):
+        out[w * n * B + c * B + g] = res[w, c, g]
+    return _signed(out, (8, n, n, sp))
+
+
+@pytest.fixture(scope="module")
+def golden_stages():
+    return golden("randousha_stages")
+
+
+@pytest.mark.parametrize("deg", ["t", "2t"])
+@pytest.mark.parametrize("mb", [1, 2, 4])
+def test_deal_model_on_the_core_is_the_plain_deal_and_the_reference(
+        golden_stages, deg, mb):
+    """The deal on the core, modelled at n=8, t=2, 128 slots (1,024 lanes:
+    16, 8 or 4 blocks): equal to _randousha_deal_plain and, permuted into
+    the port's layout, to the reference's receive tensor at both degrees."""
+    degree = GT if deg == "t" else 2 * GT
+    got = _deal_model(GKEY, GN, GT, degree, GSP, mb)
+    want = fr._randousha_deal_plain(GKEY, GN, GT, degree, GSP,
+                                    tuple(range(1, GN + 1)), CPU)
+    assert torch.equal(got, want)
+    assert torch.equal(got, from_reference_receive(golden_stages["cols_" +
+                                                                 deg], CPU))
+
+
+def _extract_agg_model(cols, band, n_out, n_outp, mb):
+    """hb_randousha_extract as the kernel runs it: lane dst*sp + sl, its n
+    operands through the EncodeMap; m = n_out + 1 columns of the rho-folded
+    band re-laid by _gemm_band_index (the last tile half empty when m is
+    odd); column col < min(m, n_outp) to keep at row col, column n_out
+    also to z; keep rows n_out+1 .. n_outp-1 written zero by the lane's
+    threads in finish. The outputs start as junk."""
+    _, n, _, sp = cols.shape
+    m, B, tm = n_out + 1, n * sp, 64 * mb
+    sw, C, ssp, sc, si = n * n * sp, sp, n * sp, 1, sp
+    flat = cols.reshape(-1).to(torch.int64) & M32
+    g = torch.arange(B)
+    base = (g // C) * ssp + (g % C) * sc
+    ops = torch.stack([torch.stack([flat[w * sw + base + i * si]
+                                    for i in range(n)]) for w in range(8)])
+    img = bg._gemm_planes(_signed(ops, ops.shape), tm)
+    idx = bg._gemm_band_index(band.shape[0] // 32, n, m, band.shape[1])
+    tiles = band.reshape(-1)[torch.from_numpy(idx)].numpy()
+    res = _core_words(img, tiles, tm, n, m)
+    gl, c, fin = _owned(B, m, mb)
+    keep = torch.full((8 * n * n_outp * sp,), JUNK, dtype=torch.int64)
+    z = torch.full((8 * n * sp,), JUNK, dtype=torch.int64)
+    kat = (gl // sp) * n_outp * sp + gl % sp
+    for w in range(8):
+        sel = c < min(m, n_outp)
+        keep[w * n * n_outp * sp + kat[sel] + c[sel] * sp] = \
+            res[w, c[sel], gl[sel]]
+        sel = c == n_out
+        z[w * n * sp + (gl[sel] // sp) * sp + gl[sel] % sp] = \
+            res[w, c[sel], gl[sel]]
+    for lane, part, parts in fin:
+        at = (lane // sp) * n_outp * sp + lane % sp
+        for r in range(n_out + 1 + part, n_outp, parts):
+            keep[[w * n * n_outp * sp + at + r * sp for w in range(8)]] = 0
+    return _signed(keep, (8, n, n_outp, sp)), _signed(z, (8, n, sp))
+
+
+@pytest.mark.parametrize("deg", ["t", "2t"])
+@pytest.mark.parametrize("mb", [1, 2, 4])
+def test_extract_agg_store_model_is_the_plain_extraction_and_reference(
+        golden_stages, deg, mb):
+    """The aggregated extraction on the core, modelled at n=8, t=2 on the
+    reference's receive tensors and the run's rho-folded band: m = 5
+    columns (three tiles, the last half empty), keep rows 5-7 zero rows
+    of no column. Equal to _randousha_extract_plain in aggregate mode and
+    to the reference's keep and z."""
+    cols = from_reference_receive(golden_stages["cols_" + deg], CPU)
+    run = fr._randousha_calls(GN, GT, GSP, tuple(range(1, GN + 1)),
+                              device=CPU)
+    n_out, n_outp = run.meta[:2]
+    band = run.folded_band(GKEY)[0]
+    keep, z = _extract_agg_model(cols, band, n_out, n_outp, mb)
+    want_keep, want_z = fr._randousha_extract_plain(cols, band, n_out,
+                                                    n_outp)
+    assert torch.equal(keep, want_keep) and torch.equal(z, want_z)
+    assert np.array_equal(to_reference_packed(keep),
+                          golden_stages["keep_" + deg])
+    assert np.array_equal(to_reference_packed(z), golden_stages["z_" + deg])
+    assert torch.equal(keep[:, :, n_out], z) and not keep[:, :, n_out + 1:].any()
+
+
+def test_extract_agg_store_model_at_an_even_column_count():
+    """n=16, t=5: m = 7 columns (four tiles, the last half empty), one
+    zero keep row (7); n = 16, t = 4: m = 9 (five tiles), no zero row
+    (n_outp = 8 = n_out: column 8 goes to z alone). Equal to the plain
+    aggregated extraction."""
+    for n, t in ((16, 5), (16, 4)):
+        points = tuple(range(1, n + 1))
+        run = fr._randousha_calls(n, t, 128, points, device=CPU)
+        n_out, n_outp = run.meta[:2]
+        cols = fr.randousha_deal((n, t), n, t, t, 128, points, CPU)
+        band = run.folded_band((n, t))[0]
+        keep, z = _extract_agg_model(cols, band, n_out, n_outp, 2)
+        want_keep, want_z = fr._randousha_extract_plain(cols, band, n_out,
+                                                        n_outp)
+        assert torch.equal(keep, want_keep) and torch.equal(z, want_z)
+
+
+def test_deal_and_extract_plans():
+    """The lane tiles the deal and the aggregated extraction launch at the
+    main-path shapes (n=64, 4096 slots: 262,144 lanes on 132 SMs): 256
+    lanes at k = 22, 128 at k = 43 (the 256-lane planes do not fit), 64 at
+    k = n = 64. Few lanes take small tiles; every planned tile fits a
+    block's shared memory."""
+    lanes = 64 * 4096
+    assert fr._deal_plan(22, lanes) == 4
+    assert fr._deal_plan(43, lanes) == 2
+    assert bg.smem_bytes(43, 4) > bg.SMEM_MAX >= bg.smem_bytes(43, 2)
+    assert bg._gemm_plan(64, lanes) == 1
+    assert bg.smem_bytes(64, 2) > bg.SMEM_MAX >= bg.smem_bytes(64, 1)
+    assert fr._deal_plan(3, 1024) == bg._gemm_plan(8, 1024) == 1

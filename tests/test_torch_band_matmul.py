@@ -22,6 +22,8 @@ from honeybadgermpc_tpu_torch.ops.limbs import (P, R_MOD_P, ints_to_limbs,
                                                 limbs_to_ints)
 from honeybadgermpc_tpu_torch.ops.rs import Encoding
 
+from _jax_memory import release_jax_memory  # noqa: F401
+
 
 def _rand_ints(seed, count):
     rng = np.random.default_rng(seed)

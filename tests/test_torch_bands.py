@@ -20,6 +20,8 @@ from honeybadgermpc_tpu_torch.ops import fused_open_direct as port_fod
 from honeybadgermpc_tpu_torch.ops import limbs as port_limbs
 from honeybadgermpc_tpu_torch.ops.fpmatmul import _vandermonde_int_rows
 
+from _jax_memory import release_jax_memory  # noqa: F401
+
 P = port_limbs.P
 
 

@@ -17,6 +17,8 @@ from honeybadgermpc_tpu_torch.ops import limbs as port_limbs
 from honeybadgermpc_tpu_torch.ops import montgomery as port_mont
 from honeybadgermpc_tpu_torch.ops.fparray import FpArray
 
+from _jax_memory import release_jax_memory  # noqa: F401
+
 P = port_limbs.P
 NUM = 48
 

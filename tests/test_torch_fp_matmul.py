@@ -25,6 +25,9 @@ from honeybadgermpc_tpu_torch.ops.fpmatmul import _route, fp_matmul
 from honeybadgermpc_tpu_torch.ops.limbs import (P, R_MOD_P, ints_to_limbs,
                                                 limbs_to_ints)
 
+from _golden import golden
+from _jax_memory import release_jax_memory  # noqa: F401
+
 RINV = pow(R_MOD_P, P - 2, P)
 
 
@@ -172,16 +175,18 @@ def test_streamed_kernels_have_a_plan_for_every_routed_contraction():
             4: (439, 858), 8: (313, 422), 16: (196, 204)}.get(n, (None, None))
 
 
-def test_fused_route_plain_vs_reference_and_ints():
-    """Row 14's plain version (the 73 diagonals and the 17-round REDC) at
-    the reference's fast-tier shape against its fp_matmul_mxu (interpret
-    mode), and at a routed shape (B=1024, k=439, n=4) through fp_matmul
-    against Python ints on sampled rows."""
-    B, k, n = 256, 9, 12
-    a, v = _mat(7, B, k), _mat(8, k, n)
+def _ref_fused_route():
+    """The reference's fp_matmul_mxu (interpret mode) at its fast-tier
+    shape B=256, k=9, n=12."""
+    a, v = _mat(7, 256, 9), _mat(8, 9, 12)
+    return {"out": np.asarray(ref_mxu.fp_matmul_mxu(jnp.asarray(a),
+                                                    jnp.asarray(v)))}
+
+
+def _check_fused_route(ref):
+    a, v = _mat(7, 256, 9), _mat(8, 9, 12)
     got = _port(mxu.fp_matmul_mxu_fused, a, v)
-    want = np.asarray(ref_mxu.fp_matmul_mxu(jnp.asarray(a), jnp.asarray(v)))
-    assert np.array_equal(got, want)
+    assert np.array_equal(got, ref["out"])
     B, k, n = 1024, 439, 4
     assert _route(B, k, n) == "mxu_fused"
     a, v = _mat(9, B, k), _mat(10, k, n)
@@ -190,6 +195,23 @@ def test_fused_route_plain_vs_reference_and_ints():
     got = to_reference_limbs(out.limbs)
     rows = [0, 511, B - 1]
     assert limbs_to_ints(got[:, rows]).tolist() == _oracle_rows(a, v, rows)
+
+
+def test_fused_route_plain_vs_reference_and_ints():
+    """Row 14's plain version (the 73 diagonals and the 17-round REDC) at
+    the reference's fast-tier shape against its fp_matmul_mxu (interpret
+    mode; golden vectors, tests/_golden.py), and at a routed shape
+    (B=1024, k=439, n=4) through fp_matmul against Python ints on sampled
+    rows."""
+    _check_fused_route(golden("fp_matmul_mxu_fused_route"))
+
+
+@pytest.mark.slow
+def test_fused_route_plain_vs_reference_and_ints_live_reference():
+    _check_fused_route(_ref_fused_route())
+
+
+GOLDEN = {"fp_matmul_mxu_fused_route": _ref_fused_route}
 
 
 def test_epilogues_stay_exact_where_the_reference_wraps():

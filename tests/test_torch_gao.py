@@ -3,10 +3,13 @@ reference on the CPU, word for word (coeffs, re-encoded codeword, ok), at
 the reference's own test shapes (tests/test_gao.py), and at the open
 path's n=64, k=22 with 21 errors against a Python-int oracle only (no live
 reference compile at m=64). Inputs come from a numpy seed and go to both
-sides; tolerance: exact equality."""
+sides; the reference's outputs are committed golden vectors
+(tests/_golden.py), each test has a slow twin that runs the reference
+live. Tolerance: exact equality."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from honeybadgermpc_tpu.ops.fparray import FpArray as RefFpArray
@@ -20,6 +23,9 @@ from honeybadgermpc_tpu_torch.ops.gao import (gao_decode_with_errors,
 from honeybadgermpc_tpu_torch.ops.limbs import (P, R_MOD_P, ints_to_limbs,
                                                 limbs_to_ints)
 from honeybadgermpc_tpu_torch.ops.rs import Encoding
+
+from _golden import golden
+from _jax_memory import release_jax_memory  # noqa: F401
 
 
 def _codewords(seed, n, k, batch, bad, zs=None):
@@ -40,60 +46,98 @@ def _codewords(seed, n, k, batch, bad, zs=None):
     return coeffs, ints_to_limbs(np.array(shares, object))
 
 
-def _both(n, k, limbs, zs):
-    enc, ref_enc = Encoding(n), RefEncoding(n)
-    got = gao_robust_decode(enc, zs, FpArray(from_reference_limbs(limbs,
-                                                                   "cpu")), k)
-    want = ref_gao(ref_enc, zs, RefFpArray(jnp.asarray(limbs)), k)
-    return got, want
+# (n, k, seed, batch, bad shares, subset zs or None) of each case
+CASES = {
+    "gao_t_errors": (7, 3, 12, 3, [[1, 4], [0, 6], [2, 3]], None),
+    "gao_partial_subset": (10, 3, 20, 2, [[1, 4], []],
+                           (0, 2, 3, 5, 7, 8, 9)),
+    "gao_too_many_errors": (7, 3, 30, 1, [[0, 1, 2, 3]], None),
+}
 
 
-def _assert_word_equal(got, want):
-    (c, r, ok), (rc, rr, rok) = got, want
-    assert np.array_equal(to_reference_limbs(c.limbs), np.asarray(rc.limbs))
-    assert np.array_equal(to_reference_limbs(r.limbs), np.asarray(rr.limbs))
-    assert np.array_equal(ok.numpy(), np.asarray(rok))
+def _case(name):
+    """(n, k, coeffs, limbs, zs) of a case."""
+    n, k, seed, batch, bad, zs = CASES[name]
+    coeffs, limbs = _codewords(seed, n, k, batch, bad, zs=zs)
+    return n, k, coeffs, limbs, tuple(range(n)) if zs is None else zs
 
 
-def test_gao_corrects_t_errors_like_the_reference():
+def _ref_case(name):
+    """The reference's gao_robust_decode of a case's words."""
+    n, k, _, limbs, zs = _case(name)
+    rc, rr, rok = ref_gao(RefEncoding(n), zs, RefFpArray(jnp.asarray(limbs)),
+                          k)
+    return {"coeffs": np.asarray(rc.limbs), "reenc": np.asarray(rr.limbs),
+            "ok": np.asarray(rok)}
+
+
+def _port_case(name, ref):
+    """The port's decode of a case, word for word equal to `ref`."""
+    n, k, coeffs, limbs, zs = _case(name)
+    c, r, ok = gao_robust_decode(Encoding(n), zs, FpArray(
+        from_reference_limbs(limbs, "cpu")), k)
+    assert np.array_equal(to_reference_limbs(c.limbs), ref["coeffs"])
+    assert np.array_equal(to_reference_limbs(r.limbs), ref["reenc"])
+    assert np.array_equal(ok.numpy(), ref["ok"])
+    return coeffs, limbs, (c, r, ok)
+
+
+def _check_t_errors(ref):
     """n=7, k=3: t=2 errors in each of three instances."""
-    n, k, batch = 7, 3, 3
-    bad = [[1, 4], [0, 6], [2, 3]]
-    coeffs, limbs = _codewords(12, n, k, batch, bad)
-    got, want = _both(n, k, limbs, tuple(range(n)))
-    _assert_word_equal(got, want)
-    f, reenc, ok = got
+    coeffs, limbs, (f, reenc, ok) = _port_case("gao_t_errors", ref)
     assert ok.all()
     assert FpArray(f.limbs).to_ints().tolist() == coeffs
     err = ~reenc.eq(FpArray(from_reference_limbs(limbs, "cpu")))
     assert [sorted(np.flatnonzero(e).tolist()) for e in err.numpy()] == \
-        [sorted(b) for b in bad]
+        [sorted(b) for b in CASES["gao_t_errors"][4]]
 
 
-def test_gao_partial_subset_like_the_reference():
+def _check_partial_subset(ref):
     """m = k + 2e = 7 shares of n = 10 parties, two of them wrong."""
-    n, k = 10, 3
-    zs = (0, 2, 3, 5, 7, 8, 9)
-    coeffs, limbs = _codewords(20, n, k, 2, [[1, 4], []], zs=zs)
-    got, want = _both(n, k, limbs, zs)
-    _assert_word_equal(got, want)
-    assert got[2].all()
-    assert FpArray(got[0].limbs).to_ints().tolist() == coeffs
+    coeffs, _, (f, _, ok) = _port_case("gao_partial_subset", ref)
+    assert ok.all()
+    assert FpArray(f.limbs).to_ints().tolist() == coeffs
 
 
-def test_gao_too_many_errors_like_the_reference():
+def _check_too_many_errors(ref):
     """4 > (7-3)//2 errors: the outputs are still the reference's words,
     and the decode does not return the original polynomial with at most
     2 errors."""
-    n, k = 7, 3
-    coeffs, limbs = _codewords(30, n, k, 1, [[0, 1, 2, 3]])
-    got, want = _both(n, k, limbs, tuple(range(n)))
-    _assert_word_equal(got, want)
-    f, reenc, ok = got
+    coeffs, limbs, (f, reenc, ok) = _port_case("gao_too_many_errors", ref)
     err = ~reenc.eq(FpArray(from_reference_limbs(limbs, "cpu")))
     if bool(ok[0]):
         assert FpArray(f.limbs).to_ints()[0].tolist() != coeffs[0] \
             or int(err.sum()) > 2
+
+
+def test_gao_corrects_t_errors_like_the_reference():
+    _check_t_errors(golden("gao_t_errors"))
+
+
+def test_gao_partial_subset_like_the_reference():
+    _check_partial_subset(golden("gao_partial_subset"))
+
+
+def test_gao_too_many_errors_like_the_reference():
+    _check_too_many_errors(golden("gao_too_many_errors"))
+
+
+@pytest.mark.slow
+def test_gao_corrects_t_errors_like_the_reference_live_reference():
+    _check_t_errors(_ref_case("gao_t_errors"))
+
+
+@pytest.mark.slow
+def test_gao_partial_subset_like_the_reference_live_reference():
+    _check_partial_subset(_ref_case("gao_partial_subset"))
+
+
+@pytest.mark.slow
+def test_gao_too_many_errors_like_the_reference_live_reference():
+    _check_too_many_errors(_ref_case("gao_too_many_errors"))
+
+
+GOLDEN = {name: (lambda name=name: _ref_case(name)) for name in CASES}
 
 
 def test_gao_n64_k22_corrects_21_errors():

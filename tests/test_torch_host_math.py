@@ -13,6 +13,8 @@ import honeybadgermpc_tpu_torch as port
 from honeybadgermpc_tpu_torch import elliptic_curve as ec
 from honeybadgermpc_tpu_torch import field, polynomial
 
+from _jax_memory import release_jax_memory  # noqa: F401
+
 P = ec.Subgroup.BLS12_381
 
 

@@ -25,6 +25,8 @@ from honeybadgermpc_tpu_torch.ops.fparray import FpArray
 from honeybadgermpc_tpu_torch.ops.limbs import (P, R_MOD_P, ints_to_limbs,
                                                 limbs_to_ints)
 
+from _jax_memory import release_jax_memory  # noqa: F401
+
 RINV = pow(R_MOD_P, P - 2, P)
 
 

@@ -5,14 +5,19 @@ programs are the ones its tests compile), and against Python ints. The
 port runs with device="cpu" (plain versions). Tolerance: exact
 equality."""
 
+import json
 import random
 
+import numpy as np
 import pytest
 
 from honeybadgermpc_tpu import ntl as ref_ntl
 from honeybadgermpc_tpu_torch import ntl
 from honeybadgermpc_tpu_torch.elliptic_curve import Subgroup
 from honeybadgermpc_tpu_torch.polynomial import get_omega_int
+
+from _golden import golden
+from _jax_memory import release_jax_memory  # noqa: F401
 
 P = Subgroup.BLS12_381
 CPU = "cpu"
@@ -88,22 +93,52 @@ def test_fft_interpolate_and_batch(rng):
     assert gotb == ref_ntl.fft_batch_interpolate(zs, [ys, ys], omega, P, n)
 
 
-def test_gao_interpolate_with_errors_and_erasures(rng):
+def _gao_inputs():
+    """Two words of 9 shares of a degree-2 polynomial (the rng fixture's
+    draws): two wrong shares, then three more."""
+    rng = random.Random(31337)
     k, m = 3, 9
     coeffs = [rng.randrange(P) for _ in range(k)]
     xs = list(range(1, m + 1))
     ys = [_poly_eval(coeffs, x) for x in xs]
     ys[1] = (ys[1] + 17) % P
     ys[6] = (ys[6] + 1) % P
-    got = ntl.gao_interpolate(xs, ys, k, P, device=CPU)
-    assert got == ref_ntl.gao_interpolate(xs, ys, k, P)
-    assert got[0][:k] == coeffs
-    assert ntl._gao_host(xs, ys, k, P) == (coeffs, [xs[1], xs[6]])
     ys2 = list(ys)
     for i in (0, 2, 3):
         ys2[i] = (ys2[i] + 5) % P
-    assert ntl.gao_interpolate(xs, ys2, k, P, device=CPU) == (None, None) \
-        == ref_ntl.gao_interpolate(xs, ys2, k, P)
+    return k, coeffs, xs, ys, ys2
+
+
+def _ref_gao():
+    """The reference's gao_interpolate of both words, as JSON."""
+    k, _, xs, ys, ys2 = _gao_inputs()
+    return {"json": np.array(json.dumps(
+        [ref_ntl.gao_interpolate(xs, y, k, P) for y in (ys, ys2)]))}
+
+
+def _check_gao(ref):
+    k, coeffs, xs, ys, ys2 = _gao_inputs()
+    want, want2 = json.loads(str(ref["json"]))
+    got = ntl.gao_interpolate(xs, ys, k, P, device=CPU)
+    assert json.loads(json.dumps(got)) == want
+    assert got[0][:k] == coeffs
+    assert ntl._gao_host(xs, ys, k, P) == (coeffs, [xs[1], xs[6]])
+    got2 = ntl.gao_interpolate(xs, ys2, k, P, device=CPU)
+    assert got2 == (None, None) and want2 == [None, None]
+
+
+def test_gao_interpolate_with_errors_and_erasures():
+    """Against the reference's results on the same words (golden vectors,
+    tests/_golden.py)."""
+    _check_gao(golden("ntl_gao"))
+
+
+@pytest.mark.slow
+def test_gao_interpolate_with_errors_and_erasures_live_reference():
+    _check_gao(_ref_gao())
+
+
+GOLDEN = {"ntl_gao": _ref_gao}
 
 
 def test_host_fallbacks_for_other_moduli(rng):

@@ -26,6 +26,8 @@ from honeybadgermpc_tpu_torch.ops.limbs import (P, R_MOD_P, ints_to_limbs,
 from honeybadgermpc_tpu_torch.polynomial import get_omega_int
 from honeybadgermpc_tpu_torch.runtime import refinement
 
+from _jax_memory import release_jax_memory  # noqa: F401
+
 OMEGA16 = get_omega_int(P, 16, seed=0)
 RINV = pow(R_MOD_P, P - 2, P)
 

@@ -21,6 +21,8 @@ from honeybadgermpc_tpu_torch.ops.limbs import (P, R_MOD_P, ints_to_limbs,
 from honeybadgermpc_tpu_torch.parallel.reconstruct import \
     _sim_reconstruct_packed_jit
 
+from _jax_memory import release_jax_memory  # noqa: F401
+
 
 def deal_packed(seed, n, deg, B, points=None):
     """Python-int dealer: B random secrets shared with degree-`deg`

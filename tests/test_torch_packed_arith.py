@@ -26,6 +26,8 @@ from honeybadgermpc_tpu_torch.ops.fused_open import pack_limbs, unpack_limbs
 from honeybadgermpc_tpu_torch.ops.limbs import (P, R_MOD_P, ints_to_limbs,
                                                 limbs_to_ints)
 
+from _jax_memory import release_jax_memory  # noqa: F401
+
 RINV = pow(R_MOD_P, P - 2, P)
 SHAPE = (8, 8, 128)                       # n, R, S
 

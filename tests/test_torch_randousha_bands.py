@@ -14,12 +14,15 @@ from honeybadgermpc_tpu_torch.interop import (from_reference_key,
                                               from_reference_limbs,
                                               to_reference_key,
                                               to_reference_limbs)
+from honeybadgermpc_tpu_torch.ops import band_gemm as bg
 from honeybadgermpc_tpu_torch.ops import fused_open as fo
 from honeybadgermpc_tpu_torch.ops import fused_randousha as fr
 from honeybadgermpc_tpu_torch.ops.fpmatmul import _lagrange_int_rows
 from honeybadgermpc_tpu_torch.ops.fused_open import NBAL, _bal_digits
 from honeybadgermpc_tpu_torch.ops.limbs import (P, ints_to_limbs,
                                                 limbs_to_ints)
+
+from _jax_memory import release_jax_memory  # noqa: F401
 
 N, T, K = 8, 2, 128
 POINTS = tuple(range(1, N + 1))
@@ -50,17 +53,32 @@ def test_lagrange_int_rows_interpolate():
     assert back == coeffs
 
 
-def test_kernel_band_index_is_the_kernel_band_permutation():
-    """The device re-lay (a gather through _kernel_band_index) equals the
-    host re-lay of the same band."""
-    band, n1 = fo._encode_band_np(POINTS, 3)
-    host = fo._kernel_band(band[0], n1, 3)
-    idx = torch.from_numpy(fo._kernel_band_index(n1, 3, band.shape[2]))
-    dev = torch.from_numpy(band[0]).reshape(-1)[idx].view(torch.int32)
-    assert np.array_equal(dev.numpy().reshape(host.shape), host)
-    assert sorted(np.unique(idx.numpy()).tolist()) == \
-        sorted(set(idx.numpy().reshape(-1).tolist()))
-    assert idx.numel() == NBAL * n1 * NBAL * 3      # a permutation
+@pytest.mark.parametrize("n,t", [(8, 2), (64, 21)])
+def test_gemm_band_index_relays_the_rho_folded_band(n, t):
+    """The aggregated extraction re-lays the run's rho-folded band (ncp2 =
+    8 columns at n=8, 24 at n=64) on the device with one gather through
+    _gemm_band_index into n_out + 1 columns of band_gemm tiles: the
+    gather's tiles, read through the B descriptor, are that band (keep
+    columns and the check column), the half of the last tile past column
+    n_out zero; the index is a permutation of distinct band bytes."""
+    run = fr._randousha_calls(n, t, 128, tuple(range(1, n + 1)), device=CPU)
+    n_out = run.meta[0]
+    band = run.folded_band((n, t))[0]
+    ncp2, m = band.shape[0] // NBAL, n_out + 1
+    assert ncp2 == -(-m // 8) * 8
+    idx = bg._gemm_band_index(ncp2, n, m, band.shape[1])
+    tiles = band.reshape(-1)[torch.from_numpy(idx)].numpy()
+    assert np.array_equal(tiles, bg._gemm_band(band.numpy(), ncp2, n, m))
+    assert len(np.unique(idx)) == idx.size
+    colt, diag = bg._tile_rows()
+    b = band.numpy()
+    for ct in range(-(-m // 2)):
+        cols = 2 * ct + colt
+        for kk in range(n):
+            got = bg._desc_walk(tiles[ct, kk], 0, 1024, 128, 64)
+            want = b[diag * ncp2 + np.minimum(cols, ncp2 - 1), kk::n][:, :32]
+            want = np.where((cols < m)[:, None], want, 0)
+            assert np.array_equal(got, want), (ct, kk)
 
 
 @pytest.mark.parametrize("key", KEYS)

@@ -2,11 +2,15 @@
 through the NTL-compatible API — share polynomials among 9 parties,
 correct a lying party with Gao, interpolate from a subset, move to the FFT
 domain and back from a subset of its points, refine the result — against
-the same sequence through the JAX package's ntl, call by call, and against
-the Python-int oracle. The port runs with device="cpu". Tolerance: exact
-equality."""
+the same sequence through the JAX package's ntl, call by call (its results
+are committed golden vectors, tests/_golden.py; a slow twin runs it live),
+and against the Python-int oracle. The port runs with device="cpu".
+Tolerance: exact equality."""
+
+import json
 
 import numpy as np
+import pytest
 
 from honeybadgermpc_tpu import ntl as ref_ntl
 from honeybadgermpc_tpu.runtime.refinement import \
@@ -15,6 +19,9 @@ from honeybadgermpc_tpu_torch import GF, FpArray, ntl
 from honeybadgermpc_tpu_torch.ops.limbs import P
 from honeybadgermpc_tpu_torch.polynomial import get_omega_int
 from honeybadgermpc_tpu_torch.runtime.refinement import refine_randoms
+
+from _golden import golden
+from _jax_memory import release_jax_memory  # noqa: F401
 
 
 def _run(api, **kw):
@@ -42,15 +49,31 @@ def _run(api, **kw):
                 evals=evals, back=back, one=one)
 
 
-def test_ntl_sequence_equals_the_reference():
+def _ref_sequence():
+    """The sequence through the reference's ntl, as JSON (Python ints)."""
+    return {"json": np.array(json.dumps(_run(ref_ntl)))}
+
+
+def _check_sequence(ref):
     got = _run(ntl, device="cpu")
-    want = _run(ref_ntl)
-    assert got == want
+    assert json.loads(json.dumps(got)) == json.loads(str(ref["json"]))
     polys = got["polys"]
     assert got["msg"] == polys[1] and got["sub"] == polys
     assert [row[:3] for row in got["back"]] == polys
     assert got["one"] == polys[0]
     assert ntl.evaluate(got["err"], 5, P) == 0
+
+
+def test_ntl_sequence_equals_the_reference():
+    _check_sequence(golden("ntl_sequence"))
+
+
+@pytest.mark.slow
+def test_ntl_sequence_equals_the_reference_live_reference():
+    _check_sequence(_ref_sequence())
+
+
+GOLDEN = {"ntl_sequence": _ref_sequence}
 
 
 def test_refinement_of_the_opened_values():

@@ -35,6 +35,8 @@ from honeybadgermpc_tpu_torch.parallel.reconstruct import \
 from honeybadgermpc_tpu_torch.runtime.preprocessing import \
     PreProcessedElements
 
+from _jax_memory import release_jax_memory  # noqa: F401
+
 N, T, B = 8, 2, 9
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 

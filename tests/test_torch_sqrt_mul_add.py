@@ -29,6 +29,9 @@ from honeybadgermpc_tpu_torch.ops.fused_open import pack_limbs, unpack_limbs
 from honeybadgermpc_tpu_torch.ops.limbs import (P, R_MOD_P, ints_to_limbs,
                                                 limbs_to_ints)
 
+from _golden import golden
+from _jax_memory import release_jax_memory  # noqa: F401
+
 RINV = pow(R_MOD_P, P - 2, P)
 EDGE = [0, 1, 2, P - 1, P - 2, 4, 5, (P - 1) // 2]
 
@@ -66,15 +69,35 @@ def _ts_int(a):
     return r, r * r % P == a or a == 0
 
 
-def test_sqrt_word_equal_to_the_reference():
+def _sqrt_input():
     rng = np.random.default_rng(61)
-    vals = EDGE + _draw(rng, 64 - len(EDGE))
-    limbs = _mont_limbs(vals, (4, 16))
-    ref_r, ref_ok = RefFpArray(limbs).sqrt()
-    r, ok = FpArray(from_reference_limbs(limbs, "cpu")).sqrt()
-    assert np.array_equal(to_reference_limbs(r.limbs), np.asarray(ref_r.limbs))
-    assert ok.tolist() == np.asarray(ref_ok).tolist()
+    return _mont_limbs(EDGE + _draw(rng, 64 - len(EDGE)), (4, 16))
+
+
+def _ref_sqrt():
+    """The reference's FpArray.sqrt on the [4, 16] input."""
+    ref_r, ref_ok = RefFpArray(_sqrt_input()).sqrt()
+    return {"root": np.asarray(ref_r.limbs), "ok": np.asarray(ref_ok)}
+
+
+def _check_sqrt(ref):
+    r, ok = FpArray(from_reference_limbs(_sqrt_input(), "cpu")).sqrt()
+    assert np.array_equal(to_reference_limbs(r.limbs), ref["root"])
+    assert ok.tolist() == ref["ok"].tolist()
     assert ok.dtype == torch.bool and tuple(ok.shape) == (4, 16)
+
+
+def test_sqrt_word_equal_to_the_reference():
+    """Against the reference's roots (golden vectors, tests/_golden.py)."""
+    _check_sqrt(golden("sqrt_4_16"))
+
+
+@pytest.mark.slow
+def test_sqrt_word_equal_to_the_reference_live_reference():
+    _check_sqrt(_ref_sqrt())
+
+
+GOLDEN = {"sqrt_4_16": _ref_sqrt}
 
 
 @pytest.mark.parametrize("seed", [1, 2])

@@ -24,6 +24,8 @@ from honeybadgermpc_tpu_torch.ops.fused_open import pack_limbs, unpack_limbs
 from honeybadgermpc_tpu_torch.ops.limbs import (P, R_MOD_P, ints_to_limbs,
                                                 limbs_to_ints)
 
+from _jax_memory import release_jax_memory  # noqa: F401
+
 EDGE = [0, 1, P - 1, P - 2, R_MOD_P, (1 << 255) % P, 0xFFFF, P >> 1]
 
 

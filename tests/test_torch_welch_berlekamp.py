@@ -18,6 +18,8 @@ from honeybadgermpc_tpu_torch.ops.fparray import FpArray
 from honeybadgermpc_tpu_torch.ops.limbs import P, R_MOD_P, ints_to_limbs
 from honeybadgermpc_tpu_torch.ops.rs import Encoding
 
+from _jax_memory import release_jax_memory  # noqa: F401
+
 
 def _draw(rng):
     return int.from_bytes(rng.bytes(40), "little") % P
