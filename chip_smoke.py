@@ -47,10 +47,17 @@ Phases, each printing one JSON line; any failure exits non-zero (18 and
               core) at B in {1, 63, 64, 65, 16896, 262144}, k in {1, 3, 22,
               43, 64}, m in {1, 5, 64, 128} with a Python-int sample each,
               timed at the open's shape and the eager programs' three; the
-              deal and the aggregated extraction (rows 4 and 5a, on the
-              wgmma core) at n=8, t=2 and n=64, t=21 over 4096 slots, both
-              degrees, also at every lane tile that fits, on outputs
-              filled with nonzero bytes
+              direct open (row 1, on the wgmma core up to k = 81) at n=8,
+              7 and 64, k = 3, 22 and 43, and its large-k route (the
+              mma.sync kernel) at n=128, k=86, each honest, with a
+              validating and an interpolating party faulty, two lanes of
+              one warp faulty at the last compare column, one lane at the
+              first, and t faulty parties: secrets and per-source counts
+              equal, timed honest and with 21 faulty parties; the deal and
+              the aggregated extraction (rows 4 and 5a, on the wgmma core)
+              at n=8, t=2 and n=64, t=21 over 4096 slots, both degrees,
+              also at every lane tile that fits, on outputs filled with
+              nonzero bytes
   4 main      deal, pack and open every segment; nerr == 0; opened secrets
               against a Python-int Lagrange oracle; launch counters moved
   5 faults    a flipped word is detected and charged to the right party
@@ -110,7 +117,9 @@ Phases, each printing one JSON line; any failure exits non-zero (18 and
               n=8, t=2, sp=128 and n=64, t=21, sp=4096, both degrees (the
               extraction once more on outputs filled with nonzero bytes:
               every word written, the zero check rows too), the
-              check also on a flipped word (1 at that lane only); the flat
+              check (row 6, on the wgmma core) also on a flipped word (1 at
+              that lane only) and on flips in two lanes of one 64-lane
+              block at the last and the first compare column; the flat
               subtract at [8,3,77] and at the flat finish's [8,90112] -
               [8,64,90112], also against montgomery.sub_mod; times, bounds
  19 per-column path  _randousha_calls(64, 21, 4096, aggregate=False), double
@@ -233,9 +242,13 @@ NCHECKP = -(-2 * T // 8) * 8      # 48 columns of the padded check tensor
 MUL_ADD_OPS_PER_ELEMENT = 2 * (8 * 8 * 2) + 8 + 16 + 16 + 8 + 16
 SUB_BCAST_OPS_PER_ELEMENT = 8 + 8 + 8
 OPEN_PATH_KERNELS = ("open_direct", "band_matmul", "rand_limbs")
+# the direct open's large-k route (fused_open_direct._direct_route): k = 86
+# at n = 128 is above the core's k <= 81
+LARGE_K = (128, 85)
 # kernel name -> (module, name of its launch counter there)
 KERNEL_COUNTERS = {
     "open_direct": (fod, "launches"),
+    "open_direct_mma": (fod, "launches_mma"),
     "band_matmul": (bm, "launches"),
     "rand_limbs": (fk, "launches"),
     "randousha_deal": (fr, "launches_deal"),
@@ -470,25 +483,72 @@ def compare_band(dev, b, k, m):
     return max_abs_err(got, want), a, mat
 
 
+def deal_packed_plain(dev, n, deg, b, key):
+    """deal_packed for a degree above band_matmul's k <= 64: the encode
+    through band_matmul's plain version on the card."""
+    k = deg + 1
+    coeffs = pack_limbs(fk.rand_limbs(key, b * k, dev).reshape(L, b, k))
+    mat = _vandermonde_int_rows(tuple(range(1, n + 1)), k)
+    return bm._band_matmul_plain(coeffs, mat).permute(0, 2, 1).contiguous()
+
+
+def tolerated_parties(n, t):
+    """t parties spread over 0..n-1, on both sides of k = t + 1."""
+    return sorted({(i * n) // t for i in range(t)})
+
+
+def open_faults(shares, n, t):
+    """The direct open's fault cases: name -> faulted shares [PL, n, B] and
+    the per-party counts they must give (None: the plain version's only)."""
+    k, b = t + 1, shares.shape[-1]
+    cases = {"honest": (shares, [0] * n)}
+    x = shares.clone()
+    x[3, n - 1, b // 2] ^= 0x2482                  # a validating party
+    x[0, 0, b - 1] ^= 1                            # an interpolating party
+    cases["validating_and_interpolating"] = (x, None)
+    # two lanes of one warp and 64-lane block at the last compare column:
+    # one atomic for both
+    x = shares.clone()
+    x[3, n - 1, 3] ^= 0x10
+    x[0, n - 1, 12] ^= 1
+    cases["two_lanes_last_column"] = (x, [0] * (n - 1) + [2])
+    x = shares.clone()
+    x[7, k, b - 1] ^= 0x40000000                   # the first compare column
+    cases["first_column"] = (x, [0] * k + [1] + [0] * (n - k - 1))
+    x = shares.clone()                             # t faulty parties
+    for p in tolerated_parties(n, t):
+        x[p % PL, p] ^= p + 1
+    cases["t_faulty_parties"] = (x, None)
+    return cases
+
+
 def compare_open(dev, n, t, b):
-    """Honest and faulted shares through kernel and plain version."""
+    """The direct open's kernel (the route k takes: the wgmma core up to
+    k = 81, the mma.sync kernel above) against its plain version on every
+    case of open_faults: secrets and per-source counts equal, the counts
+    where a case fixes them."""
     k = t + 1
     pts = tuple(range(1, n + 1))
-    shares = deal_packed(dev, n, t, b, (31, n))
+    route = fod._direct_route(k)
+    deal = deal_packed if k <= fo.KMAX else deal_packed_plain
+    shares = deal(dev, n, t, b, (31, n))
     worst = 0
-    for faulted in (False, True):
-        x = shares
-        if faulted:
-            x = shares.clone()
-            x[3, n - 1, b // 2] ^= 0x2482          # a validating party
-            x[0, 0, b - 1] ^= 1                    # an interpolating party
+    for name, (x, want) in open_faults(shares, n, t).items():
+        before = (fod.launches, fod.launches_mma)
         sec, errs = fod._open_direct_cuda(x, n, k, pts)
         sec_p, errs_p = fod._open_direct_plain(x, n, k, pts)
         sync()
+        moved = (fod.launches - before[0], fod.launches_mma - before[1])
+        check(moved == ((1, 0) if route == "wgmma" else (0, 1)),
+              f"open_direct at k={k} took the wrong route: {moved}")
         check(torch.equal(sec, sec_p) and torch.equal(errs, errs_p),
-              f"open_direct != plain at n={n} t={t} B={b} faulted={faulted}")
-        check((int(errs.sum()) > 0) == faulted,
-              f"open_direct verdict wrong at n={n} t={t} faulted={faulted}")
+              f"open_direct ({route}) != plain at n={n} t={t} B={b} {name}")
+        check((int(errs.sum()) > 0) == (name != "honest"),
+              f"open_direct verdict wrong at n={n} t={t} {name}")
+        check(want is None or errs.tolist() == want,
+              f"open_direct counts at n={n} t={t} {name}: {errs.tolist()}")
+        check(not bool(errs[:k].any()),
+              f"open_direct charged an interpolating party at {name}")
         worst = max(worst, max_abs_err(sec, sec_p), max_abs_err(errs, errs_p))
     return worst, shares, pts
 
@@ -510,12 +570,20 @@ def phase_kernels(dev):
         del a, mat
         torch.cuda.empty_cache()
     a_main, mat_main = band_in[SEG, K]
-    # small, unaligned, main-path, and the degree-2t open (k = 43)
+    # the large-k route (k = 86 > 81: the mma.sync kernel), then small,
+    # unaligned, the degree-2t open (k = 43) and the main path's shape
+    n_l, t_l = LARGE_K
+    e, shares_l, pts_l = compare_open(dev, n_l, t_l, (t_l + 1) * 64)
+    err["open_direct_mma"] = e
+    shapes.append(f"open_direct n={n_l} k={t_l + 1} B={(t_l + 1) * 64} "
+                  f"(mma.sync route)")
     for n, t, b in ((8, 2, 48), (7, 2, 33), (N, 2 * T, 43 * 392),
                     (N, T, SEG)):
         e, shares_main, pts = compare_open(dev, n, t, b)
         err["open_direct"] = max(err["open_direct"], e)
-        shapes.append(f"open_direct n={n} k={t + 1} B={b}")
+        shapes.append(f"open_direct n={n} k={t + 1} B={b} "
+                      f"({len(open_faults(shares_main, n, t))} cases)")
+    faulty_main = open_faults(shares_main, N, T)["t_faulty_parties"][0]
 
     # times at the main-path shapes (the band dots are far from the memory
     # bound, so a warm L2 does not flatter them; the open is also timed over
@@ -526,6 +594,21 @@ def phase_kernels(dev):
                       20, "open_direct_kernel"),
             time_ms(lambda: fod._open_direct_plain(shares_main, N, K, pts), 3),
             open_bound(N, K, SEG)),
+        # a segment with 21 faulty parties: every compare column of every
+        # lane mismatches, one atomic per warp, column and 64-lane block
+        "open_direct_faulty": (
+            kernel_ms(lambda: fod._open_direct_cuda(faulty_main, N, K, pts),
+                      20, "open_direct_kernel"),
+            time_ms(lambda: fod._open_direct_plain(faulty_main, N, K, pts),
+                    3),
+            open_bound(N, K, SEG)),
+        "open_direct_mma": (
+            kernel_ms(lambda: fod._open_direct_cuda(shares_l, n_l, t_l + 1,
+                                                    pts_l),
+                      20, "open_direct_mma_kernel"),
+            time_ms(lambda: fod._open_direct_plain(shares_l, n_l, t_l + 1,
+                                                   pts_l), 3),
+            open_bound(n_l, t_l + 1, (t_l + 1) * 64)),
         "band_matmul": (
             kernel_ms(lambda: bm.band_matmul_packed(a_main, mat_main), 20,
                       "band_matmul_kernel"),
@@ -545,7 +628,7 @@ def phase_kernels(dev):
                       "band_matmul_kernel"),
             timed_once(lambda: bm._band_matmul_plain(a, mat)),
             band_bound(N * KT, k, N))
-    del band_in, a, mat
+    del band_in, a, mat, shares_l, faulty_main
     torch.cuda.empty_cache()
     say("kernels_vs_plain", ok=True, tolerance="exact (torch.equal)",
         shapes=shapes, timed_by={k: v[0][1] for k, v in times.items()},
@@ -610,7 +693,8 @@ def phase_main(dev, nseg, reps):
     for name in OPEN_PATH_KERNELS:
         check(launches[name] > 0,
               f"main path never launched the {name} kernel")
-    check(launches["open_direct"] == nseg, "one open launch per segment")
+    check(launches["open_direct"] == nseg and launches["open_direct_mma"] == 0,
+          "one open launch per segment, on the wgmma core")
     for sec, ne in outs:
         check(tuple(sec.shape) == (PL, SEG) and sec.dtype == torch.int32
               and tuple(ne.shape) == (N,), "opened shapes")
@@ -2214,9 +2298,18 @@ def phase_kernels_per_column(dev):
                                device=dev)
             want[c0, s0] = 1
             e2, _ = compare_check(bad, k, pts, want)
-            err["randousha_check"] = max(err["randousha_check"], e, e2)
+            # flips in two lanes of one 64-lane block (column 0, slots 3
+            # and 12) at the last and the first compare column
+            bad = chk.clone()
+            bad[3, n - 1, 0, 3] ^= 0x10
+            bad[0, k, 0, 12] ^= 1
+            want = torch.zeros_like(want)
+            want[0, 3] = want[0, 12] = 1
+            e3, _ = compare_check(bad, k, pts, want)
+            err["randousha_check"] = max(err["randousha_check"], e, e2, e3)
             shapes.append(f"randousha_check n={n} k={k} ncheckp="
-                          f"{chk.shape[2]} sp={sp} (+ a flipped word)")
+                          f"{chk.shape[2]} sp={sp} (+ a flipped word, + "
+                          f"two lanes of one block)")
             del bad
             if n == N:
                 tag = "" if degree == T else "_2t"
@@ -2439,8 +2532,9 @@ def ptxas_core(log):
             kern, rest = m.group(2)[:int(m.group(1))], m.group(2)
             mb = re.match(r"ILi(\d)E", rest[len(kern):])
             name = f"{kern} lanes={64 * int(mb.group(1))}" if mb and kern in (
-                "band_matmul_kernel", "open_fused_k1_kernel",
-                "open_fused_k2_kernel", "randousha_extract_pc_kernel",
+                "band_matmul_kernel", "open_direct_kernel",
+                "open_fused_k1_kernel", "open_fused_k2_kernel",
+                "randousha_check_kernel", "randousha_extract_pc_kernel",
                 "randousha_deal_kernel", "randousha_extract_kernel") \
                 else None
             continue
@@ -2584,6 +2678,23 @@ def kernels_line(times, err, launches, launches_triples, launches_robust,
             row["launches_programs"] = launches_programs[name]
         if name == "open_direct":
             row["launches_robust_open"] = launches_robust[name]
+            ms2, plain2, (bound2, by2) = times["open_direct_faulty"]
+            row["faulty_segment"] = {
+                "ms": ms2, "plain_ms": plain2, "bound_ms": bound2,
+                "bound_by": by2,
+                "shape": f"n={N} k={K} B={SEG}, {T} faulty parties"}
+            # the large-k route: the same function, another kernel
+            ms3, plain3, (bound3, by3) = times["open_direct_mma"]
+            n_l, t_l = LARGE_K
+            row["large_k_route"] = {
+                "name": "open_direct_mma", "route": "cuda",
+                "source": source, "replaces": replaces,
+                "launches": launches["open_direct_mma"],
+                "max_abs_err": err["open_direct_mma"], "ms": ms3,
+                "plain_ms": plain3, "bound_ms": bound3, "bound_by": by3,
+                "library_ms": None,
+                "shape": f"n={n_l} k={t_l + 1} B={(t_l + 1) * 64} "
+                         f"(k > 81: field_core.cuh's mma.sync core)"}
         if name == "mxu_redc":      # its dot, outside the kernel
             row["dot_int_mm_ms"] = int_mm_ms
         if name in robust_path:
@@ -2594,7 +2705,8 @@ def kernels_line(times, err, launches, launches_triples, launches_robust,
             row["streamed_shape"] = {"ms": ms3, "plain_ms": plain3,
                                      "bound_ms": bound3, "bound_by": by3,
                                      "shape": shape3}
-        if name in ("band_matmul", "open_fused_k1", "open_fused_k2",
+        if name in ("band_matmul", "open_direct", "open_fused_k1",
+                    "open_fused_k2", "randousha_check",
                     "randousha_extract_pc", "randousha_deal",
                     "randousha_extract"):
             row["core"] = "honeybadgermpc_tpu_torch/csrc/band_gemm.cuh"

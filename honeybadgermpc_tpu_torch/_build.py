@@ -97,8 +97,10 @@ def _declare(lib):
     vp, i32, i64, u32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_uint32)
     init = ctypes.POINTER(ctypes.c_uint32)
-    lib.hb_open_direct.argtypes = [vp, vp, vp, vp, i32, i32, i64, i32, i32,
-                                   init, i32, vp]
+    lib.hb_open_direct.argtypes = [vp, vp, vp, vp, i32, i32, i64, i32, init,
+                                   vp]
+    lib.hb_open_direct_mma.argtypes = [vp, vp, vp, vp, i32, i32, i64, i32,
+                                       i32, init, i32, vp]
     lib.hb_band_matmul.argtypes = [vp, vp, vp, i64, i32, i32, i32, init,
                                    vp]
     lib.hb_rand_limbs.argtypes = [u32, u32, vp, i64, vp]
@@ -121,7 +123,7 @@ def _declare(lib):
     lib.hb_randousha_extract_pc.argtypes = [vp, vp, vp, vp, i32, i32, i32,
                                             i32, i32, i32, init, vp]
     lib.hb_randousha_check.argtypes = [vp, vp, vp, vp, i32, i32, i64, i64,
-                                       i32, i32, init, i32, vp]
+                                       i32, init, vp]
     lib.hb_open_fused_k1.argtypes = [vp, vp, vp, i32, i32, i64, i32, init,
                                      vp]
     lib.hb_open_fused_k2.argtypes = [vp, vp, vp, vp, i32, i32, i64, i32,
@@ -130,7 +132,8 @@ def _declare(lib):
                                      init, i32, vp]
     fused = (lib.hb_open_fused_k1, lib.hb_open_fused_k2,
              lib.hb_open_fused_k3)
-    for fn in (lib.hb_open_direct, lib.hb_band_matmul, lib.hb_rand_limbs,
+    for fn in (lib.hb_open_direct, lib.hb_open_direct_mma,
+               lib.hb_band_matmul, lib.hb_rand_limbs,
                lib.hb_randousha_deal, lib.hb_randousha_extract,
                lib.hb_mul_add_packed4, lib.hb_sub_bcast_packed4,
                lib.hb_mont_mul, lib.hb_fp_matmul_cios, lib.hb_mxu_fused2,

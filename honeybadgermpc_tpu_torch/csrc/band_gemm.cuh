@@ -1,10 +1,12 @@
 // band_gemm: the Vandermonde band encode as one int8 GEMM per block, on
 // Hopper's wgmma and bulk async copies. Runs band_matmul_kernel
-// (band_matmul.cu), K1 and K2 of the three-kernel open (open_fused.cu), the
-// deal (randousha_deal.cu) and both extractions (randousha_extract.cu);
-// each brings its own operand source and epilogue policy (below). The
-// other band kernels (the direct open, K3 and the per-column check) keep
-// field_core.cuh's mma.sync core.
+// (band_matmul.cu), the direct open (open_direct.cu), K1 and K2 of the
+// three-kernel open and the per-column check (open_fused.cu), the deal
+// (randousha_deal.cu) and both extractions (randousha_extract.cu); each
+// brings its own operand source and epilogue policy (below). The other
+// band kernels (K3, and the direct open above k = 81, where the planes of
+// a 64-lane block no longer fit shared memory) keep field_core.cuh's
+// mma.sync core.
 //
 // The function (ops/fused_open.py's plain core): for each lane, k packed
 // operands -> 32 balanced int8 digits each (the planes), dotted with every
@@ -61,8 +63,9 @@
 //              _fold_reduce_words). The result words are the packed
 //              words: no pack step. What a (lane, column) then does with
 //              them is the kernel's epilogue policy: a store (StoreEpi),
-//              a compare and count (K2), stores to two outputs (the
-//              extractions).
+//              a compare and count (CompareEpi: K2, the per-column check,
+//              the direct open, each with its own charge), stores to two
+//              outputs (the extractions).
 #pragma once
 
 #include "field_core.cuh"
@@ -352,6 +355,87 @@ struct StoreEpi {
                                          int) const {}
 };
 
+// Where CompareEpi charges the mismatches of lane g = grp * C + c at
+// compare column col:
+//   Group   errs[g / C]: K2's destination. A lane's count adds up in a
+//           register over the thread's columns and goes out in finish(),
+//           one atomicAdd per thread and lane when not 0.
+//   Lane    errs[g]: the per-column check's (check column, slot); the same.
+//   Source  errs[col]: the direct open's source party k + col (the caller
+//           passes errs = nerr + k). The 16 threads of a warp that hold a
+//           column (the quad positions tg with the same tg >> 1) reduce
+//           its 16 lanes with one ballot and popc: one atomicAdd per warp,
+//           column and 64-lane block, when not 0.
+enum class Charge { Group, Lane, Source };
+
+// Compare and count (K2, the per-column check, the direct open). A lane's
+// first k operands decode a polynomial: column col < nv predicts operand
+// k + col, which is compared with it; column nv (lam0) is the value at 0,
+// stored to vals [PL, nlanes] at lane g; column nv + 1 (the empty half of
+// an odd last tile) does nothing. Every caller's operand map puts lane g's
+// operand i at src[w*sw + i*si + g] (grp * sp + c * sc = g), so the
+// compared words are fetched ahead (band_gemm_body) from there. Honest
+// shares make no atomic. The lane state is kept small: at 256 lanes a
+// thread holds four.
+template <Charge CH>
+struct CompareEpi {
+  uint32_t* vals;
+  int* errs;
+  const uint32_t* src;
+  int nv;
+  struct Lane {
+    long long g;
+    int bad;
+    bool valid;
+  };
+  struct Fetch {
+    uint32_t w[PL];
+  };
+
+  __device__ __forceinline__ Lane lane(const EncodeMap&, long long g,
+                                       bool valid, long long,
+                                       long long) const {
+    return {g, 0, valid};
+  }
+  __device__ __forceinline__ void fetch(const EncodeMap& mp, const Lane& ln,
+                                        int col, Fetch& f) const {
+    const bool cmp = ln.valid && col < nv;
+    const uint32_t* p =
+        src + ln.g + static_cast<long long>(mp.k + col) * mp.si;
+#pragma unroll
+    for (int w = 0; w < PL; ++w) f.w[w] = cmp ? __ldg(p + w * mp.sw) : 0u;
+  }
+  __device__ __forceinline__ void apply(const EncodeMap& mp, Lane& ln,
+                                        int col, const uint32_t (&words)[PL],
+                                        const Fetch& f) const {
+    if (CH == Charge::Source) {            // every thread of the warp
+      const bool bad = ln.valid && col < nv && mismatch(words, f.w);
+      const int laneid = threadIdx.x & 31;
+      const uint32_t half = (laneid & 2) ? 0xCCCCCCCCu : 0x33333333u;
+      const int cnt = __popc(__ballot_sync(0xFFFFFFFFu, bad) & half);
+      if (cnt != 0 && (laneid & ~2) == 0) atomicAdd(&errs[col], cnt);
+      if (ln.valid && col == nv) store(mp, ln, words);
+      return;
+    }
+    if (!ln.valid) return;
+    if (col < nv) {
+      ln.bad += mismatch(words, f.w) ? 1 : 0;
+    } else if (col == nv) {
+      store(mp, ln, words);
+    }
+  }
+  __device__ __forceinline__ void store(const EncodeMap& mp, const Lane& ln,
+                                        const uint32_t (&words)[PL]) const {
+#pragma unroll
+    for (int w = 0; w < PL; ++w) vals[w * mp.nlanes + ln.g] = words[w];
+  }
+  __device__ __forceinline__ void finish(const EncodeMap& mp, const Lane& ln,
+                                         int, int) const {
+    if (CH != Charge::Source && ln.bad)
+      atomicAdd(&errs[CH == Charge::Group ? ln.g / mp.C : ln.g], ln.bad);
+  }
+};
+
 // ---------------------------------------------------------------------------
 // The block
 // ---------------------------------------------------------------------------
@@ -379,8 +463,8 @@ __device__ __forceinline__ void plane_item(unsigned char* planes, int oct_n,
 //            or an operand past k (planes of zero operands dot to nothing)
 // ---------------------------------------------------------------------------
 
-// Loaded from device memory through the EncodeMap (band_matmul, K1, K2,
-// the extractions).
+// Loaded from device memory through the EncodeMap (band_matmul, the
+// direct open, K1, K2, the per-column check, the extractions).
 struct LoadSrc {
   const uint32_t* src;              // read with __ldg
 
@@ -598,7 +682,7 @@ __device__ __forceinline__ void band_gemm_body(
   int sr = 0;                              // this ring's load number
   for (int ct = wgi; ct < ntiles; ct += CONSUMERS) {
     const int col = ct * NT + cl;
-    // what the column needs besides its result (K2's received words): the
+    // what the column needs besides its result (the compared words): the
     // first lane's loads go out before the tile's dot, each next lane's
     // once the previous lane is done, under its own fold. One lane's words
     // in registers at a time: at 256 lanes the accumulators leave no room

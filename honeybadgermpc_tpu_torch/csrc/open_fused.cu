@@ -19,8 +19,8 @@
 //                coefficients -> sec [PL, k, C]; columns k..n-1 predict
 //                the other psi values; mismatches go to errs[0]
 //
-// A fourth instantiation serves the fused RanDouSha pipeline's per-column
-// check and replaces honeybadgermpc_tpu/ops/fused_randousha.py::_kc_kernel
+// A fourth kernel serves the fused RanDouSha pipeline's per-column check
+// and replaces honeybadgermpc_tpu/ops/fused_randousha.py::_kc_kernel
 // (called through kc_call):
 //
 //   KC  check    lane (col, s) of the check tensor chk [PL, n, ncheckp, sp]
@@ -43,59 +43,47 @@
 // ridge; the fold/REDC epilogue (CUDA cores, about 450 instructions per
 // lane and column) comes on top of the dot.
 //
-// K1 and K2 run on band_gemm.cuh's core (wgmma, the band streamed through
-// shared memory, the epilogue straight from the accumulators), lane g =
-// grp * C + c with the chunk index c contiguous. K1's epilogue is a plain
-// store. K2's (K2Epi below) compares columns 0..nv-1 with the received
-// words, which it loads ahead of the fold, keeps each lane's mismatch
-// count in a register and adds it to errs[destination] with one atomicAdd
-// when it is not 0 (honest shares: no atomics); column nv is stored.
+// K1, K2 and KC run on band_gemm.cuh's core (wgmma, the band streamed
+// through shared memory, the epilogue straight from the accumulators),
+// lane g = grp * C + c with the chunk index c contiguous. K1's epilogue is
+// a plain store. K2's and KC's are band_gemm.cuh's CompareEpi on the same
+// band (K2's R1 band): columns 0..nv-1 compared with the received words,
+// loaded ahead of the fold, each lane's mismatch count kept in a register
+// and added to errs[destination] (K2) or errs[lane] (KC) with one
+// atomicAdd when it is not 0 (honest shares: no atomics); column nv
+// stored. KC's lanes are the check tensor's (col, slot) pairs as one group
+// (C = lanes).
 //
-// K3 and KC keep the direct open's design (csrc/open_direct.cu) on
-// field_core.cuh's mma.sync core: a block owns TL lanes and WG column
-// slots; it builds its lanes' balanced digit planes once in shared memory;
-// every warp then walks its slot's columns with no block barrier: band
-// fragments from device memory one k-step ahead, mma.sync.m16n8k32.s8, a
-// per-warp transpose to one lane per thread, the fold/REDC epilogue in
-// registers, then a store or a compare. The two differ only in how a lane
-// finds its k operands, what a column does with its result, and where
-// mismatches are charged:
-//
-//   operand i, word w of lane g = src[w*sw + (g / C)*sp + i*si + g % C]
-//
-// Each thread keeps its mismatch count in a register and adds it to the
-// global counter with one atomicAdd at the end, when it is not 0. Integer
-// adds: order-free.
+// K3 keeps the mma.sync design of field_core.cuh: a block owns TL lanes
+// and WG column slots; it builds its lanes' balanced digit planes once in
+// shared memory; every warp then walks its slot's columns with no block
+// barrier: band fragments from device memory one k-step ahead,
+// mma.sync.m16n8k32.s8, a per-warp transpose to one lane per thread, the
+// fold/REDC epilogue in registers, then a store (columns 0..k-1, the
+// secret coefficients) or a compare (columns k..n-1). Lane c's operand i,
+// word w is src[w*sw + i*C + c]. Each thread keeps its mismatch count in a
+// register and adds it to errs[0] with one atomicAdd at the end, when it
+// is not 0. Integer adds: order-free.
 #include "band_gemm.cuh"
 
 namespace hb {
 
-struct LaneMap {
-  long long nlanes;   // lanes of the launch
-  long long C;        // chunks per group of lanes
-  long long sw;       // word-plane stride of src
-  long long sp;       // stride of one lane group (a check column; 0 for
-                      // K3's one group)
-  long long si;       // stride of one operand
-};
-
-template <int STAGE>
-__device__ __forceinline__ void open_fused_body(
-    unsigned char* smem, const uint32_t* __restrict__ src,
-    const int4* __restrict__ band, uint32_t* __restrict__ out,
-    int* __restrict__ errs, int n, int k, int ncol, LaneMap m, int tl,
-    const FoldConst& fc) {
+// K3: lane c of C; operand i, word w at src[w*n*C + i*C + c]; columns
+// 0..k-1 go to sec [PL, k, C], columns k..n-1 are compared with operand col.
+__global__ void open_fused_k3_kernel(const uint32_t* __restrict__ src,
+                                     const int4* __restrict__ band,
+                                     uint32_t* __restrict__ sec,
+                                     int* __restrict__ errs, int n, int k,
+                                     long long C, int tl, FoldConst fc) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int wg = blockDim.x / tl;
   const int tid = threadIdx.x;
   const int laneid = tid & 31;
   const int slot = tid / tl;               // column slot of this warp
   const int lane = tid - slot * tl;        // lane within the block
-  const long long g = static_cast<long long>(blockIdx.x) * tl + lane;
-  const bool valid = g < m.nlanes;
-  const long long grp = valid ? g / m.C : 0;
-  const long long c = valid ? g - grp * m.C : 0;
-  const size_t base = static_cast<size_t>(grp * m.sp + c);
-  const int nv = n - k;
+  const long long c = static_cast<long long>(blockIdx.x) * tl + lane;
+  const bool valid = c < C;
+  const size_t sw = static_cast<size_t>(n) * C;
   const int stride = tl + 8;
   const BandSmem s = band_smem_carve(smem, k, tl, wg);
   int* s_d = s.stage + (tid >> 5) * 32 * D_STRIDE;
@@ -107,9 +95,7 @@ __device__ __forceinline__ void open_fused_body(
 #pragma unroll
     for (int w = 0; w < PL; ++w) {
       const uint32_t word =
-          valid ? src[static_cast<size_t>(w) * m.sw + base +
-                      static_cast<size_t>(i) * m.si]
-                : 0u;
+          valid ? src[w * sw + static_cast<size_t>(i) * C + c] : 0u;
       s.planes[(i * PL + w) * stride + lane] = balance_word(word, carry);
     }
   }
@@ -117,17 +103,14 @@ __device__ __forceinline__ void open_fused_body(
   __syncthreads();                         // planes are ready
 
   int bad = 0;
-  for (int col = slot; col < ncol; col += wg) {
+  for (int col = slot; col < n; col += wg) {
     // the operand this column's prediction is checked against, if any
-    int cmp = -1;
-    if (STAGE == 4 && col < nv) cmp = k + col;
-    if (STAGE == 3 && col >= k) cmp = col;
+    const bool cmp = col >= k;
     uint32_t recv[PL];
 #pragma unroll
     for (int w = 0; w < PL; ++w)
-      recv[w] = (valid && cmp >= 0)
-                    ? src[static_cast<size_t>(w) * m.sw + base +
-                          static_cast<size_t>(cmp) * m.si]
+      recv[w] = (valid && cmp)
+                    ? src[w * sw + static_cast<size_t>(col) * C + c]
                     : 0u;
 
     int acc[2][4][4];
@@ -140,23 +123,17 @@ __device__ __forceinline__ void open_fused_body(
     pack16(limbs, words);
 
     if (!valid) continue;
-    if (cmp >= 0) {
+    if (cmp) {
       bad += mismatch(words, recv) ? 1 : 0;
       continue;
     }
-    size_t at, plane;
-    if (STAGE == 4) {                      // vals [PL, lanes]: lane g
-      at = static_cast<size_t>(g);
-      plane = static_cast<size_t>(m.nlanes);
-    } else {                               // sec [PL, k, C]
-      at = static_cast<size_t>(col) * m.C + c;
-      plane = static_cast<size_t>(k) * m.C;
-    }
+    const size_t at = static_cast<size_t>(col) * C + c;
+    const size_t plane = static_cast<size_t>(k) * C;
 #pragma unroll
-    for (int w = 0; w < PL; ++w) out[w * plane + at] = words[w];
+    for (int w = 0; w < PL; ++w) sec[w * plane + at] = words[w];
   }
   // the column slots of a lane add into one count: integer adds, order-free
-  if (bad) atomicAdd(&errs[STAGE == 4 ? g : 0], bad);
+  if (bad) atomicAdd(&errs[0], bad);
 }
 
 template <int MB>
@@ -169,59 +146,10 @@ __global__ void __launch_bounds__(gemm::threads(MB), 1)
   gemm::band_gemm_body<MB>(smem, gemm::LoadSrc{src}, band, mp, wf, epi);
 }
 
-// K2's epilogue on the core. Lane g = j * C + c (destination j), its
-// operands the first k sources' columns. Column col < nv predicts source
-// k + col's column: its received words (the operand map at i = k + col;
-// with sp = C and sc = 1 the lane's own offset is g) are fetched ahead
-// (band_gemm_body) and compared; the lane's mismatches add up in a
-// register and go to errs[j], the DESTINATION, in one atomicAdd per thread
-// when not 0. Column nv (lam0) is psi_j(0), stored to vals [PL, n * C] at
-// lane g. Column nv + 1 (the empty half of an odd last tile) does nothing.
-// The lane state is kept small: at 256 lanes a thread holds four.
-struct K2Epi {
-  uint32_t* vals;
-  int* errs;
-  const uint32_t* src;
-  int nv;
-  struct Lane {
-    long long g;
-    int bad;
-    bool valid;
-  };
-  struct Fetch {
-    uint32_t w[PL];
-  };
-
-  __device__ __forceinline__ Lane lane(const gemm::EncodeMap&, long long g,
-                                       bool valid, long long,
-                                       long long) const {
-    return {g, 0, valid};
-  }
-  __device__ __forceinline__ void fetch(const gemm::EncodeMap& mp,
-                                        const Lane& ln, int col,
-                                        Fetch& f) const {
-    const bool cmp = ln.valid && col < nv;
-    const uint32_t* p =
-        src + ln.g + static_cast<long long>(mp.k + col) * mp.si;
-#pragma unroll
-    for (int w = 0; w < PL; ++w) f.w[w] = cmp ? __ldg(p + w * mp.sw) : 0u;
-  }
-  __device__ __forceinline__ void apply(const gemm::EncodeMap& mp, Lane& ln,
-                                        int col, const uint32_t (&words)[PL],
-                                        const Fetch& f) const {
-    if (!ln.valid) return;
-    if (col < nv) {
-      ln.bad += mismatch(words, f.w) ? 1 : 0;
-    } else if (col == nv) {
-#pragma unroll
-      for (int w = 0; w < PL; ++w) vals[w * mp.nlanes + ln.g] = words[w];
-    }
-  }
-  __device__ __forceinline__ void finish(const gemm::EncodeMap& mp,
-                                         const Lane& ln, int, int) const {
-    if (ln.bad) atomicAdd(&errs[ln.g / mp.C], ln.bad);
-  }
-};
+// K2's and KC's epilogue on the core: compare and count, charged to the
+// destination (K2: lane g = j * C + c, errs[g / C]) or to the lane (KC).
+using K2Epi = gemm::CompareEpi<gemm::Charge::Group>;
+using CheckEpi = gemm::CompareEpi<gemm::Charge::Lane>;
 
 template <int MB>
 __global__ void __launch_bounds__(gemm::threads(MB), 1)
@@ -232,22 +160,14 @@ __global__ void __launch_bounds__(gemm::threads(MB), 1)
   gemm::band_gemm_body<MB>(smem, gemm::LoadSrc{src}, band, mp, wf, epi);
 }
 
-__global__ void open_fused_k3_kernel(const uint32_t* __restrict__ src,
-                                     const int4* __restrict__ band,
-                                     uint32_t* __restrict__ out,
-                                     int* __restrict__ errs, int n, int k,
-                                     LaneMap m, int tl, FoldConst fc) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  open_fused_body<3>(smem, src, band, out, errs, n, k, n, m, tl, fc);
-}
-
-__global__ void randousha_check_kernel(const uint32_t* __restrict__ src,
-                                       const int4* __restrict__ band,
-                                       uint32_t* __restrict__ out,
-                                       int* __restrict__ errs, int n, int k,
-                                       LaneMap m, int tl, FoldConst fc) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  open_fused_body<4>(smem, src, band, out, errs, n, k, n - k + 1, m, tl, fc);
+template <int MB>
+__global__ void __launch_bounds__(gemm::threads(MB), 1)
+    randousha_check_kernel(const uint32_t* __restrict__ chk,
+                           const unsigned char* __restrict__ band,
+                           gemm::EncodeMap mp, gemm::WordFold wf,
+                           CheckEpi epi) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  gemm::band_gemm_body<MB>(smem, gemm::LoadSrc{chk}, band, mp, wf, epi);
 }
 
 // Dynamic shared memory of a launch, allowed above 48 KB for `kernel`.
@@ -321,41 +241,49 @@ extern "C" int hb_open_fused_k2(const void* src, const void* band, void* out,
   }
 }
 
+// src: vals [PL, n, C]; band: K3's band in mma.sync fragments; out: sec
+// [PL, k, C]; errs: int32 [1], zeroed by the caller; tl, wg: _smem_plan(k).
 extern "C" int hb_open_fused_k3(const void* src, const void* band, void* out,
                                 void* errs, int n, int k, long long C,
                                 int tl, int wg, const uint32_t* init,
                                 int bias, void* stream) {
-  const hb::LaneMap m{C, C, static_cast<long long>(n) * C, 0, C};
   size_t smem = 0;
   const int rc = hb::prepare(hb::open_fused_k3_kernel, k, tl, wg, &smem);
   if (rc != 0) return rc;
-  const unsigned grid = static_cast<unsigned>((m.nlanes + tl - 1) / tl);
+  const unsigned grid = static_cast<unsigned>((C + tl - 1) / tl);
   hb::open_fused_k3_kernel<<<grid, tl * wg, smem,
                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(src), static_cast<const int4*>(band),
-      static_cast<uint32_t*>(out), static_cast<int*>(errs), n, k, m, tl,
+      static_cast<uint32_t*>(out), static_cast<int*>(errs), n, k, C, tl,
       hb::fold_const(init, bias));
   return static_cast<int>(cudaGetLastError());
 }
 
-// src: the check tensor [PL, n, ncheckp, sp]; out: vals [PL, ncheckp, sp];
-// errs: int32 [ncheckp, sp], zeroed by the caller.
+// src: the check tensor [PL, n, ncheckp, sp]; band: K2's band at k in
+// band_gemm tiles (nv + 1 columns); out: vals [PL, ncheckp, sp]; errs:
+// int32 [ncheckp, sp], zeroed by the caller; mb, fold as for K1.
 extern "C" int hb_randousha_check(const void* src, const void* band,
                                   void* out, void* errs, int n, int k,
-                                  long long sp, long long ncheckp, int tl,
-                                  int wg, const uint32_t* init, int bias,
-                                  void* stream) {
+                                  long long sp, long long ncheckp, int mb,
+                                  const uint32_t* fold, void* stream) {
   const long long lanes = ncheckp * sp;     // lane = col * sp + slot
-  const hb::LaneMap m{lanes, sp, static_cast<long long>(n) * lanes, sp,
-                      lanes};
-  size_t smem = 0;
-  const int rc = hb::prepare(hb::randousha_check_kernel, k, tl, wg, &smem);
-  if (rc != 0) return rc;
-  const unsigned grid = static_cast<unsigned>((m.nlanes + tl - 1) / tl);
-  hb::randousha_check_kernel<<<grid, tl * wg, smem,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(src), static_cast<const int4*>(band),
-      static_cast<uint32_t*>(out), static_cast<int*>(errs), n, k, m, tl,
-      hb::fold_const(init, bias));
-  return static_cast<int>(cudaGetLastError());
+  // one group of all lanes: operand i at src[w*n*lanes + i*lanes + g]
+  const hb::gemm::EncodeMap mp{lanes, lanes, n * lanes, 0, 1, lanes, k,
+                               n - k + 1};
+  const hb::CheckEpi epi{static_cast<uint32_t*>(out),
+                         static_cast<int*>(errs),
+                         static_cast<const uint32_t*>(src), n - k};
+  switch (mb) {
+    case 4:
+      return hb::gemm::launch<4>(hb::randousha_check_kernel<4>, src, band,
+                                 mp, epi, fold, stream);
+    case 2:
+      return hb::gemm::launch<2>(hb::randousha_check_kernel<2>, src, band,
+                                 mp, epi, fold, stream);
+    case 1:
+      return hb::gemm::launch<1>(hb::randousha_check_kernel<1>, src, band,
+                                 mp, epi, fold, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

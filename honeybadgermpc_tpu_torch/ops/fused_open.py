@@ -433,15 +433,13 @@ def _open_kernel_bands(points: tuple, k: int):
     """The kernel layouts of the three bands (numpy), per stage (mma.sync
     fragments or None, band_gemm tiles or None), each cut to the columns
     its kernel walks: K1 and K2 run on band_gemm's core (``_gemm_band``),
-    K3 on the mma.sync core (``_kernel_band``). K2's band also serves the
-    per-column check (ops/fused_randousha.py), which stays on the mma.sync
-    core: K2's stage carries both layouts."""
+    K3 on the mma.sync core (``_kernel_band``). K2's tiles also serve the
+    per-column check (ops/fused_randousha.py), on the same core."""
     n = len(points)
     nv = n - k
     (enc, n1), (r1, n2), (r2, n3), _, _ = _bands_np(points, k)
     return ((None, _gemm_band(enc[0], n1, k, n)),
-            (np.ascontiguousarray(_kernel_band(r1[0], n2, k)[:nv + 1]),
-             _gemm_band(r1[0], n2, k, nv + 1)),
+            (None, _gemm_band(r1[0], n2, k, nv + 1)),
             (np.ascontiguousarray(_kernel_band(r2[0], n3, k)[:n]), None))
 
 

@@ -15,11 +15,14 @@ Secrets and the accept/reject decision are bit-exact equal to the faithful
 simulation; mismatches are charged to the offending SOURCE party (parties
 0..t report 0). Callers use the counts as a redo trigger.
 
-On a CUDA tensor the open runs as the hand-written kernel
-``csrc/open_direct.cu`` (one launch: planes, band dot, fold/REDC epilogue,
-compare, per-party counts). ``_open_direct_plain`` is the plain PyTorch
-version of the same function, used for CPU tensors and as the yardstick
-the kernel is held against bit for bit.
+On a CUDA tensor the open runs as one launch of a hand-written kernel of
+``csrc/open_direct.cu`` (planes, band dot, fold epilogue, compare,
+per-party counts): ``open_direct_kernel`` on the wgmma band core
+(``csrc/band_gemm.cuh``) wherever a 64-lane block's planes fit its shared
+memory (k <= 81), ``open_direct_mma_kernel`` on the mma.sync core above
+(``_direct_route``). ``_open_direct_plain`` is the plain PyTorch version of
+the same function, used for CPU tensors and as the yardstick the kernels
+are held against bit for bit.
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ import functools
 import numpy as np
 import torch
 
+from .band_gemm import (SMEM_MAX, _fold_array, _gemm_band, _gemm_plan,
+                        smem_bytes)
 from .fused_open import (NBAL, PL, _BAL_ROUNDS, _bal_bias, _bal_fold_init,
                          _band_dot_fold, _fold_consts, _folded_band_host,
                          _kernel_band, _lam_int, _launch_stream, _pack16,
@@ -43,7 +48,8 @@ ZG = 8            # output columns per band group (the reference's layout)
 # 2-round REDC needs sum_r bias*256^r * 2 < p*2^32 ~ 2^287 (it is ~2^277).
 KMAX_DIRECT = 128
 
-launches = 0      # times the CUDA kernel was launched (and nowhere else)
+launches = 0      # times open_direct_kernel (the core) was launched
+launches_mma = 0  # times open_direct_mma_kernel (k > 81) was launched
 plain_calls_on_cuda = 0   # times the plain version ran on a CUDA tensor
 
 
@@ -81,18 +87,36 @@ def _direct_band(points: tuple, k: int):
 
 @functools.lru_cache(maxsize=None)
 def _direct_band_device(points: tuple, k: int, device: torch.device):
-    """The band on `device`: the reference layout [ngrp, NBAL*ZG, kcols]
-    int8 for the plain version (CPU or CUDA), and for CUDA also the
-    kernel's fragment layout [nv+1, k, 2, 32, 4] int32 (see _kernel_band)."""
-    band_np, ngrp, _ = _direct_band(points, k)
-    nv = len(points) - k
-    ref = torch.from_numpy(band_np).to(device)
-    kern = None
-    if device.type == "cuda":
-        words = np.concatenate(
-            [_kernel_band(band_np[g], ZG, k) for g in range(ngrp)])[:nv + 1]
-        kern = torch.from_numpy(np.ascontiguousarray(words)).to(device)
-    return ref, kern
+    """The reference-layout band [ngrp, NBAL*ZG, kcols] int8 on `device`
+    (the plain version's)."""
+    return torch.from_numpy(_direct_band(points, k)[0]).to(device)
+
+
+def _direct_route(k: int) -> str:
+    """The kernel a CUDA open of k parties' shares launches: "wgmma"
+    (open_direct_kernel on csrc/band_gemm.cuh) wherever the core's planes
+    of a 64-lane block fit shared memory beside its band rings (k <= 81),
+    else "mma_sync" (open_direct_mma_kernel, 82 <= k <= KMAX_DIRECT)."""
+    return "wgmma" if smem_bytes(k, 1) <= SMEM_MAX else "mma_sync"
+
+
+def _direct_band_flat(points: tuple, k: int):
+    """(band, ncp): the direct band's ngrp groups of ZG columns laid side by
+    side as one band int8 [NBAL*ncp, kcols] of ncp = ngrp*ZG columns, row
+    r*ncp + col: the layout of K2's R1 band, whose columns
+    [lam(points[k:]) | lam0] are the same."""
+    band, ngrp, _ = _direct_band(points, k)
+    flat = band.reshape(ngrp, NBAL, ZG, -1).transpose(1, 0, 2, 3)
+    return flat.reshape(NBAL * ngrp * ZG, -1), ngrp * ZG
+
+
+@functools.lru_cache(maxsize=None)
+def _direct_tiles(points: tuple, k: int) -> np.ndarray:
+    """The direct band's nv+1 columns in band_gemm tiles int8
+    [ceil((nv+1)/2), k, 2048] (_gemm_band of _direct_band_flat): the same
+    tiles as K2's R1 band."""
+    band, ncp = _direct_band_flat(points, k)
+    return _gemm_band(band, ncp, k, len(points) - k + 1)
 
 
 def _open_direct_plain(packed, n: int, k: int, points: tuple):
@@ -103,7 +127,7 @@ def _open_direct_plain(packed, n: int, k: int, points: tuple):
     if packed.is_cuda:
         plain_calls_on_cuda += 1
     nv = n - k
-    band, _ = _direct_band_device(points, k, packed.device)
+    band = _direct_band_device(points, k, packed.device)
     init = _bal_fold_init(k)
     bias = _bal_bias(k)
     planes = _planes_of_packed(packed[:, :k])             # [NBAL*k, B]
@@ -126,36 +150,58 @@ def _open_direct_plain(packed, n: int, k: int, points: tuple):
 @functools.lru_cache(maxsize=None)
 def _direct_launcher(points: tuple, k: int, device: torch.device):
     """Everything a launch needs that does not depend on the shares: the
-    kernel entry, the band on the device, the fold constants and the launch
-    shape. Cached, so a call costs two allocations and one launch."""
+    route's kernel entry, the band in its layout on the device, the fold
+    constants and the launch shape. Cached, so a call costs two
+    allocations and one launch."""
     from .._build import lib
-    fn = lib().hb_open_direct
-    _, band = _direct_band_device(points, k, device)
-    tl, wg = _smem_plan(k)
-    init, bias = _fold_consts(k)
     n = len(points)
+    route = _direct_route(k)
+    if route == "wgmma":
+        fn = lib().hb_open_direct
+        band = torch.from_numpy(_direct_tiles(points, k)).to(device)
+        fold = _fold_array(_bal_fold_init(k), _bal_bias(k))
+        nsm = torch.cuda.get_device_properties(device).multi_processor_count
+    else:
+        fn = lib().hb_open_direct_mma
+        band_np, ngrp, _ = _direct_band(points, k)
+        frag = np.concatenate(
+            [_kernel_band(band_np[g], ZG, k) for g in range(ngrp)])
+        band = torch.from_numpy(
+            np.ascontiguousarray(frag[:n - k + 1])).to(device)
+        tl, wg = _smem_plan(k)
+        init, bias = _fold_consts(k)
 
     def launch(packed):
         B = packed.shape[-1]
         sec = torch.empty((PL, B), dtype=torch.int32, device=device)
         nerr = torch.zeros(n, dtype=torch.int32, device=device)
-        rc = fn(packed.data_ptr(), band.data_ptr(), sec.data_ptr(),
-                nerr.data_ptr() + 4 * k, n, k, B, tl, wg, init, bias,
-                _launch_stream(packed))
+        args = (packed.data_ptr(), band.data_ptr(), sec.data_ptr(),
+                nerr.data_ptr() + 4 * k, n, k, B)
+        if route == "wgmma":
+            rc = fn(*args, _gemm_plan(k, B, nsm), fold,
+                    _launch_stream(packed))
+        else:
+            rc = fn(*args, tl, wg, init, bias, _launch_stream(packed))
         return rc, sec, nerr
 
+    launch.route = route
     return launch
 
 
 def _open_direct_cuda(packed, n: int, k: int, points: tuple):
-    """Launch csrc/open_direct.cu on packed int32 [PL, n, B] (CUDA) ->
-    (secrets [PL, B], nerr [n]); the kernel adds its per-party counts into
-    nerr[k:], which starts at zero."""
-    global launches
-    rc, sec, nerr = _direct_launcher(points, k, packed.device)(packed)
-    launches += 1
+    """Launch the route's kernel of csrc/open_direct.cu on packed int32
+    [PL, n, B] (CUDA) -> (secrets [PL, B], nerr [n]); the kernel adds its
+    per-party counts into nerr[k:], which starts at zero."""
+    global launches, launches_mma
+    launch = _direct_launcher(points, k, packed.device)
+    rc, sec, nerr = launch(packed)
+    if launch.route == "wgmma":
+        launches += 1
+    else:
+        launches_mma += 1
     if rc != 0:
-        raise RuntimeError(f"open_direct kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"open_direct kernel ({launch.route}) launch "
+                           f"failed: CUDA error {rc}")
     return sec, nerr
 
 

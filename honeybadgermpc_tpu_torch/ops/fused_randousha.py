@@ -49,10 +49,10 @@ s at index c*k + s). The per-column check tensor is int32
 ``[nblk, njt, PL, JT, ncheckp, TBW]``).
 
 On CUDA tensors deal, extract (both modes) and check are the hand-written
-kernels ``csrc/randousha_deal.cu``, ``csrc/randousha_extract.cu`` (both on
-the wgmma core ``csrc/band_gemm.cuh``: the deal draws its operands in the
-plane build, the extractions load them) and
-``csrc/open_fused.cu::randousha_check_kernel``; ``_randousha_deal_plain``,
+kernels ``csrc/randousha_deal.cu``, ``csrc/randousha_extract.cu`` and
+``csrc/open_fused.cu::randousha_check_kernel``, all on the wgmma core
+``csrc/band_gemm.cuh`` (the deal draws its operands in the plane build,
+the extractions and the check load them); ``_randousha_deal_plain``,
 ``_randousha_extract_plain`` and ``_randousha_check_plain`` are their plain
 PyTorch versions, used on the CPU and as the yardstick the kernels are held
 against bit for bit.
@@ -72,10 +72,9 @@ from .band_gemm import (_fold_array, _gemm_band, _gemm_band_index,
                         _gemm_plan, _redc384_words)
 from .fused_open import (KMAX, NBAL, PL, _BAL_ROUNDS, _bal_bias,
                          _bal_fold_init, _band_dot_fold, _encode_band_np,
-                         _fold_consts, _folded_band_host,
-                         _launch_stream, _open_bands, _pack16, _pad_band,
-                         _planes_of, _planes_of_packed, _r1_lanes_plain,
-                         _round8, _smem_plan)
+                         _folded_band_host, _gemm_args, _launch_stream,
+                         _open_bands, _pack16, _pad_band, _planes_of,
+                         _planes_of_packed, _r1_lanes_plain, _round8)
 from .limbs import P, W, ints_to_limbs
 
 JT = 8                  # party-count granule of the reference's layouts
@@ -468,19 +467,19 @@ def _randousha_check_plain(chk, k: int, points: tuple):
 
 
 def _randousha_check_cuda(chk, k: int, points: tuple):
-    """Launch csrc/open_fused.cu::randousha_check_kernel on the card."""
+    """Launch csrc/open_fused.cu::randousha_check_kernel (on
+    csrc/band_gemm.cuh, K2's tiles) on the card."""
     global launches_check
     from .._build import lib
     _, n, ncheckp, sp = chk.shape
-    kern = _open_bands(points, k, chk.device)[0][1][2]
-    tl, wg = _smem_plan(k)
-    init, bias = _fold_consts(k)
+    tiles = _open_bands(points, k, chk.device)[0][1][3]
     vals = torch.empty((PL, ncheckp, sp), dtype=torch.int32,
                        device=chk.device)
     errs = torch.zeros((ncheckp, sp), dtype=torch.int32, device=chk.device)
-    rc = lib().hb_randousha_check(chk.data_ptr(), kern.data_ptr(),
+    rc = lib().hb_randousha_check(chk.data_ptr(), tiles.data_ptr(),
                                   vals.data_ptr(), errs.data_ptr(), n, k, sp,
-                                  ncheckp, tl, wg, init, bias,
+                                  ncheckp,
+                                  *_gemm_args(k, ncheckp * sp, chk.device),
                                   _launch_stream(chk))
     launches_check += 1
     if rc != 0:

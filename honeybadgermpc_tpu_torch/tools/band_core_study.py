@@ -1,17 +1,19 @@
-"""Where the wgmma band core's time goes (rows 3, 4, 5a, 5b, 16 and 17 of
-PERF.md).
+"""Where the wgmma band core's time goes (rows 1, 3, 4, 5a, 5b, 6, 16 and
+17 of PERF.md).
 
     python3 honeybadgermpc_tpu_torch/tools/band_core_study.py [--parent DIR]
 
 Needs one CUDA card and nvcc. Builds knock-out variants of
 ``csrc/band_gemm.cuh`` (patched copies under the package's build
 directory: the sources in the checkout stay as they are) with
-``band_matmul.cu``, ``open_fused.cu``, ``randousha_extract.cu`` and
-``randousha_deal.cu``, and times each at the main-path shapes of
-band_matmul, K1, K2, both extractions and the deal with CUDA events, on
-the launch plan the wrappers choose. K2 and the extractions run on
-consistent shares, as on their paths (no mismatch, so no atomics but where
-the dot is knocked out). Variants:
+``band_matmul.cu``, ``open_direct.cu``, ``open_fused.cu``,
+``randousha_extract.cu`` and ``randousha_deal.cu``, and times each at the
+main-path shapes of band_matmul, the direct open, K1, K2, the per-column
+check, both extractions and the deal with CUDA events, on the launch plan
+the wrappers choose. The compare-and-count kernels (the direct open, K2,
+the check) and the extractions run on consistent shares, as on their paths
+(no mismatch, so no atomics but where the dot is knocked out); the direct
+open also on a segment with 21 faulty parties. Variants:
 
   final           the sources as they are
   no_epilogue     the dot, the band stream and the planes; no fold, no
@@ -32,14 +34,18 @@ the dot is knocked out). Variants:
 
 K2 is timed on final, no_epilogue, no_dot, stream_only and
 fetch_after_fold, and on final at every lane tile that fits shared memory
-besides the planned one; the per-column extraction on the first four; the
+besides the planned one; the direct open (n=64, k=22, B=16,896; honest and
+21 faulty parties) and the per-column check (n=64, 48 check columns x 4096
+slots, k = 22 and 43) on final, no_epilogue, no_dot and stream_only at
+every lane tile that fits; the per-column extraction on the first four; the
 deal (at t and 2t: k = 22 and 43) and the aggregated extraction (n_out + 1
 = 23 columns) on final, no_epilogue, no_dot, no_planes and stream_only at
 their plans, on final at every other lane tile that fits, and on
-cluster2 at every lane tile that fits. With ``--parent DIR`` (a checkout of another commit of the port, e.g. its parent unpacked
-with ``git archive``) the script also times that tree's band_matmul, K1,
-K2, both extractions and the deal through their wrappers, before and after
-the variants, in separate processes on the same card. Prints one JSON
+cluster2 at every lane tile that fits. With ``--parent DIR`` (a checkout
+of another commit of the port, e.g. its parent unpacked with ``git
+archive``) the script also times that tree's band_matmul, the direct open,
+K1, K2, the check, both extractions and the deal through their wrappers,
+before and after the variants, in separate processes on the same card. Prints one JSON
 line per measurement; the card's name and power limit come first.
 """
 
@@ -60,12 +66,14 @@ K1_SHAPES = ((64, 22, 7820), (64, 43, 4001))
 K2_SHAPES = K1_SHAPES
 EXTRACT_PC = (64, 21, 4096)           # n, t, slots: 262,144 lanes, k = 64
 DEAL = EXTRACT_PC                     # the deal and the aggregated extraction
+DIRECT = (64, 21, 16896)              # n, t, B: one segment of the open
+CHECK = (64, 21, 4096, 48)            # n, t, slots, check columns
 NEW_VARIANTS = ("final", "no_epilogue", "no_dot", "stream_only")
 K2_VARIANTS = NEW_VARIANTS + ("fetch_after_fold",)
 DEAL_VARIANTS = ("final", "no_epilogue", "no_dot", "no_planes",
                  "stream_only")
-SOURCES = ("band_matmul.cu", "open_fused.cu", "randousha_extract.cu",
-           "randousha_deal.cu")
+SOURCES = ("band_matmul.cu", "open_direct.cu", "open_fused.cu",
+           "randousha_extract.cu", "randousha_deal.cu")
 
 
 # The cluster2 variant: every core kernel in thread-block clusters of two
@@ -258,9 +266,14 @@ def build_variants(work):
         lib.hb_randousha_deal.argtypes = [ctypes.c_uint32, ctypes.c_uint32,
                                           vp, vp, i32, i32, i32, i32, i32,
                                           u32p, vp]
+        lib.hb_open_direct.argtypes = [vp, vp, vp, vp, i32, i32, i64, i32,
+                                       u32p, vp]
+        lib.hb_randousha_check.argtypes = [vp, vp, vp, vp, i32, i32, i64,
+                                           i64, i32, u32p, vp]
         for fn in (lib.hb_band_matmul, lib.hb_open_fused_k1,
                    lib.hb_open_fused_k2, lib.hb_randousha_extract_pc,
-                   lib.hb_randousha_extract, lib.hb_randousha_deal):
+                   lib.hb_randousha_extract, lib.hb_randousha_deal,
+                   lib.hb_open_direct, lib.hb_randousha_check):
             fn.restype = i32
         libs[name] = lib
     return libs
@@ -377,7 +390,111 @@ def time_variants(work):
         say(kernel="randousha_extract_pc", variant=name, n=n, t=t, sp=sp,
             lanes_per_block=64 * mb, ms=ev_ms(run))
     del keep, chk, cols, tiles
+    time_compare_variants(libs, nsm, stream)
     time_deal_variants(libs, nsm, stream)
+
+
+def fitting_tiles(k):
+    """The lane tiles (64-lane blocks per thread block) whose planes fit a
+    block's shared memory at contraction length k."""
+    from honeybadgermpc_tpu_torch.ops import band_gemm as bg
+    return [b for b in (4, 2, 1) if bg.smem_bytes(k, b) <= bg.SMEM_MAX]
+
+
+def time_compare_variants(libs, nsm, stream):
+    """The direct open (row 1) at one segment of the open, honest and with
+    21 faulty parties, and the per-column check (row 6) at both degrees, on
+    NEW_VARIANTS at every lane tile that fits."""
+    import torch
+    from honeybadgermpc_tpu_torch.ops import band_gemm as bg
+    from honeybadgermpc_tpu_torch.ops import fused_open as fo
+    from honeybadgermpc_tpu_torch.ops import fused_open_direct as fod
+    from honeybadgermpc_tpu_torch.ops import fused_randousha as fr
+    dev = torch.device("cuda")
+    n, t, b = DIRECT
+    k = t + 1
+    pts, shares = direct_input(n, t, b)
+    tiles = torch.from_numpy(fod._direct_tiles(pts, k)).to(dev)
+    fold = bg._fold_array(fo._bal_fold_init(k), fo._bal_bias(k))
+    plan = bg._gemm_plan(k, b, nsm)
+    sec = torch.empty((8, b), dtype=torch.int32, device=dev)
+    nerr = torch.zeros(n, dtype=torch.int32, device=dev)
+    for case, x in (("honest", shares), ("faulty", faulty(shares, n, t))):
+        for name in NEW_VARIANTS:
+            for m in fitting_tiles(k):
+                def run():
+                    return libs[name].hb_open_direct(
+                        x.data_ptr(), tiles.data_ptr(), sec.data_ptr(),
+                        nerr.data_ptr() + 4 * k, n, k, b, m, fold, stream)
+                if run() != 0:
+                    raise SystemExit(f"open_direct {name} launch failed")
+                say(kernel="open_direct", variant=name, case=case, n=n,
+                    k=k, B=b, lanes_per_block=64 * m, planned=m == plan,
+                    ms=ev_ms(run))
+    del shares, sec
+    n, t, sp, ncheckp = CHECK
+    pts = fr._party_points(n)
+    for k, chk in check_inputs():
+        tiles = fo._open_bands(pts, k, dev)[0][1][3]
+        fold = bg._fold_array(fo._bal_fold_init(k), fo._bal_bias(k))
+        plan = bg._gemm_plan(k, ncheckp * sp, nsm)
+        vals = torch.empty((8, ncheckp, sp), dtype=torch.int32, device=dev)
+        errs = torch.zeros((ncheckp, sp), dtype=torch.int32, device=dev)
+        for name in NEW_VARIANTS:
+            for m in fitting_tiles(k):
+                def run():
+                    return libs[name].hb_randousha_check(
+                        chk.data_ptr(), tiles.data_ptr(), vals.data_ptr(),
+                        errs.data_ptr(), n, k, sp, ncheckp, m, fold, stream)
+                if run() != 0:
+                    raise SystemExit(f"randousha_check {name} launch failed")
+                say(kernel="randousha_check", variant=name, n=n, k=k,
+                    ncheckp=ncheckp, sp=sp, lanes_per_block=64 * m,
+                    planned=m == plan, ms=ev_ms(run))
+        del chk, vals, errs
+
+
+def direct_input(n, t, b):
+    """b consistent degree-t sharings at the points 1..n, packed [PL, n, b]
+    (band_matmul of drawn coefficients, as chip_smoke.py deals them)."""
+    import torch
+    from honeybadgermpc_tpu_torch.ops import band_matmul as bm
+    from honeybadgermpc_tpu_torch.ops import field_kernels as fk
+    from honeybadgermpc_tpu_torch.ops import fused_open as fo
+    from honeybadgermpc_tpu_torch.ops.fpmatmul import _vandermonde_int_rows
+    k = t + 1
+    coeffs = fo.pack_limbs(fk.rand_limbs((31, n), b * k, torch.device(
+        "cuda")).reshape(16, b, k))
+    mat = _vandermonde_int_rows(tuple(range(1, n + 1)), k)
+    shares = bm.band_matmul_packed(coeffs, mat).permute(0, 2, 1)
+    return tuple(range(1, n + 1)), shares.contiguous()
+
+
+def faulty(shares, n, t):
+    """The shares with t parties spread over 0..n-1 faulty in every lane
+    (chip_smoke.py's t_faulty_parties case)."""
+    x = shares.clone()
+    for p in sorted({(i * n) // t for i in range(t)}):
+        x[p % 8, p] ^= p + 1
+    return x
+
+
+def check_inputs():
+    """(k, the check tensor [PL, n, ncheckp, sp]) of the per-column
+    pipeline at degree t and 2t: the deal, then the per-column
+    extraction."""
+    import torch
+    from honeybadgermpc_tpu_torch.ops import fused_randousha as fr
+    dev = torch.device("cuda")
+    n, t, sp, ncheckp = CHECK
+    pts = fr._party_points(n)
+    band = fr._encode_band_device(pts, n, dev)[0]
+    for degree in (t, 2 * t):
+        cols = fr.randousha_deal((61, degree), n, t, degree, sp, pts, dev)
+        _, chk = fr.randousha_extract(cols, band, n - 2 * t,
+                                      -(-(n - 2 * t) // 8) * 8, ncheckp)
+        del cols
+        yield degree + 1, chk
 
 
 def tile_runs(k, plan):
@@ -504,6 +621,19 @@ def time_tree(tag):
         say(kernel="open_fused_k2", tree=tag, n=n, k=k, C=c,
             ms=ev_ms(lambda: fo.open_k2(cols, pts, k)))
         del cols
+    from honeybadgermpc_tpu_torch.ops import fused_open_direct as fod
+    n, t, b = DIRECT
+    pts, shares = direct_input(n, t, b)
+    for case, x in (("honest", shares), ("faulty", faulty(shares, n, t))):
+        say(kernel="open_direct", tree=tag, case=case, n=n, k=t + 1, B=b,
+            ms=ev_ms(lambda: fod._open_direct_cuda(x, n, t + 1, pts)))
+    del shares, x
+    n, t, sp, ncheckp = CHECK
+    pts = fr._party_points(n)
+    for k, chk in check_inputs():
+        say(kernel="randousha_check", tree=tag, n=n, k=k, ncheckp=ncheckp,
+            sp=sp, ms=ev_ms(lambda: fr.randousha_check(chk, k, pts)))
+        del chk
     n, t, sp = EXTRACT_PC
     cols, band = extract_pc_input(n, t, sp)
     say(kernel="randousha_extract_pc", tree=tag, n=n, t=t, sp=sp,

@@ -1,8 +1,10 @@
 """Port parity: the kernels on the wgmma band core that bring their own
-operand source or epilogue policy (csrc/band_gemm.cuh): K2 of the
-three-kernel open (csrc/open_fused.cu, K2Epi), the per-column and the
-aggregated extraction (csrc/randousha_extract.cu, ExtractPcEpi and
-ExtractAggEpi) and the deal (csrc/randousha_deal.cu, DrawSrc). The kernels
+operand source or epilogue policy (csrc/band_gemm.cuh): the compare and
+count (CompareEpi) of K2 of the three-kernel open and of the per-column
+check (csrc/open_fused.cu) and of the direct open (csrc/open_direct.cu),
+each with its own charge, the per-column and the aggregated extraction
+(csrc/randousha_extract.cu, ExtractPcEpi and ExtractAggEpi) and the deal
+(csrc/randousha_deal.cu, DrawSrc). The kernels
 run only on the card (chip_smoke.py holds them against their plain
 versions there); here their host layouts are held against the reference's
 bands, and a plain model of what they do (the lane maps of their C
@@ -16,11 +18,18 @@ import numpy as np
 import pytest
 import torch
 
+import jax.numpy as jnp
+
 from honeybadgermpc_tpu.ops import fused_open as ref_fo
-from honeybadgermpc_tpu_torch.interop import (from_reference_receive,
+from honeybadgermpc_tpu.ops.fused_open_direct import \
+    sim_open_direct_packed as ref_direct
+from honeybadgermpc_tpu_torch.interop import (from_reference_check,
+                                              from_reference_packed,
+                                              from_reference_receive,
                                               to_reference_packed)
 from honeybadgermpc_tpu_torch.ops import band_gemm as bg
 from honeybadgermpc_tpu_torch.ops import fused_open as fo
+from honeybadgermpc_tpu_torch.ops import fused_open_direct as fod
 from honeybadgermpc_tpu_torch.ops import fused_randousha as fr
 from honeybadgermpc_tpu_torch.ops import montgomery as mont
 from honeybadgermpc_tpu_torch.ops.limbs import P
@@ -54,16 +63,50 @@ def _walk_tiles(tiles, band, ncp, k, m):
 def test_k2_tiles_walked_by_their_descriptor_are_the_reference_band(k):
     """K2's band at n=64 in band_gemm tiles (nv+1 = 43 columns at k=22: a
     half-empty last tile; 22 at k=43) is the reference's R1 band; the
-    per-column check keeps K2's fragment layout beside it."""
+    per-column check runs on the same tiles, so K2's stage carries no
+    mma.sync fragment band any more (only K3's does)."""
     n = 64
     points = tuple(range(1, n + 1))
     band, ncp = ref_fo._bands_np(points, k)[1]
     frag, tiles = fo._open_kernel_bands(points, k)[1]
     _walk_tiles(tiles, band[0], ncp, k, n - k + 1)
-    assert np.array_equal(
-        frag, fo._kernel_band(band[0], ncp, k)[:n - k + 1])
+    assert frag is None
+    assert fo._open_kernel_bands(points, k)[2][1] is None
     enc, n1 = ref_fo._bands_np(points, k)[0]
     _walk_tiles(fo._open_kernel_bands(points, k)[0][1], enc[0], n1, k, n)
+
+
+@pytest.mark.parametrize("n,k", [(64, 22), (64, 43), (8, 3), (8, 2)])
+def test_direct_tiles_are_k2s_tiles(n, k):
+    """The direct open's band (the reference's _direct_band: groups of 8
+    columns [lam(points[k:]) | lam0]) laid side by side and re-laid by
+    _gemm_band gives K2's R1 tiles byte for byte, so the direct open and
+    K2 run the same band (nv+1 = 43, 22, 6 and 7 columns: half-empty last
+    tiles at 43 and 7); at n=8, walked by the B descriptor, it is the
+    reference's R1 band (at n=64 the K2 test above walks the same bytes)."""
+    points = tuple(range(1, n + 1))
+    tiles = fod._direct_tiles(points, k)
+    assert np.array_equal(tiles, fo._open_kernel_bands(points, k)[1][1])
+    if n == 8:
+        band, ncp = ref_fo._bands_np(points, k)[1]
+        _walk_tiles(tiles, band[0], ncp, k, n - k + 1)
+
+
+def test_direct_route_pins_the_core_and_the_large_k_kernel():
+    """The direct open runs on the core wherever a 64-lane block's planes
+    fit shared memory beside its rings (k <= 81) and on the mma.sync
+    kernel from k = 82 to KMAX_DIRECT = 128; the launch plan at the open's
+    shape (B = 16,896 = 132 x 128 lanes) and at the triple call's k = 43
+    opens (B = 43 x 392) is 128-lane blocks, the check's at k = 22 256
+    lanes."""
+    assert bg.smem_bytes(81, 1) <= bg.SMEM_MAX < bg.smem_bytes(82, 1)
+    assert [fod._direct_route(k) for k in (1, 22, 43, 64, 81)] == \
+        ["wgmma"] * 5
+    assert [fod._direct_route(k) for k in (82, 86, 128)] == ["mma_sync"] * 3
+    assert fod.KMAX_DIRECT == 128 and not fod.direct_fits(200, 129)
+    assert bg._gemm_plan(22, 16896) == 2
+    assert bg._gemm_plan(43, 43 * 392) == 2
+    assert fr._deal_plan(22, 48 * 4096) == bg._gemm_plan(22, 48 * 4096) == 4
 
 
 @pytest.mark.parametrize("ncp,k,rowlen", [(8, 8, 256), (64, 64, 2048)])
@@ -117,36 +160,97 @@ def _results(flat, mp, band, ncp):
     return words.to(torch.int64) & M32
 
 
+def _compare_model(flat, mp, band, ncp, nv, mb, charge):
+    """CompareEpi on the core as the kernel runs it, for the lanes of the
+    map mp (every caller's map puts operand i, word w of lane g at
+    flat[w*sw + i*si + g]): column col < nv compared with the words fetched
+    at operand k + col, column nv stored to vals [PL, nlanes] at the lane,
+    column nv+1 nothing. The charge: "group" (K2) and "lane" (the check) add
+    a thread's count of a lane to errs[g // C] or errs[g] in finish, one
+    atomic when not 0; "source" (the direct open) counts the 16 lanes of a
+    warp's column half together (key: the lane's 16-lane group of its warp
+    and 64-lane block, and the column) and adds the count to errs[col] in
+    one atomic when not 0. -> (vals int32 [PL * nlanes], errs int64 dict
+    index -> count, the number of atomics). vals starts as junk, so a word
+    nobody writes shows."""
+    nlanes, C, sw, _, _, si, k = mp
+    words = _results(flat, mp, band, ncp)
+    vals = torch.full((8 * nlanes,), JUNK, dtype=torch.int64)
+    errs, warp, atomics = {}, {}, 0
+    for lanes, tcols, _, _ in _owners(nlanes, nv + 1, mb):
+        for g in lanes:
+            bad = 0
+            for col in tcols:
+                miss = False
+                if g < nlanes and col < nv:
+                    recv = flat[[w * sw + (k + col) * si + g
+                                 for w in range(8)]]
+                    miss = bool((words[:, col, g] != recv).any())
+                elif g < nlanes and col == nv:
+                    vals[[w * nlanes + g for w in range(8)]] = words[:, col, g]
+                if charge == "source":
+                    key = (g // 16, col)
+                    warp[key] = warp.get(key, 0) + miss
+                bad += miss
+            if charge != "source" and bad:
+                at = g // C if charge == "group" else g
+                errs[at] = errs.get(at, 0) + bad
+                atomics += 1
+    for (_, col), cnt in warp.items():
+        if cnt:
+            errs[col] = errs.get(col, 0) + cnt
+            atomics += 1
+    return _signed(vals, (8 * nlanes,)), errs, atomics
+
+
 def _k2_model(cols, points, k, mb):
-    """hb_open_fused_k2 as the kernel runs it: lane j*C + c; columns
-    0..nv-1 compared with the received words fetched at operand k + col,
-    counted per thread and lane and added to errs[lane // C] when not 0;
-    column nv stored to vals at the lane; column nv+1 nothing."""
+    """hb_open_fused_k2 as the kernel runs it: lane j*C + c, CompareEpi
+    charged to the destination errs[lane // C]."""
     _, n, _, C = cols.shape
     nv = n - k
     mp = (n * C, C, n * n * C, C, 1, n * C, k)
     flat = cols.reshape(-1).to(torch.int64) & M32
     band, ncp = fo._bands_np(points, k)[1]
-    words = _results(flat, mp, band[0], ncp)
-    vals = torch.full((8 * n * C,), JUNK, dtype=torch.int64)
-    errs = torch.zeros(n, dtype=torch.int64)
-    for lanes, tcols, _, _ in _owners(n * C, nv + 1, mb):
-        for g in lanes:
-            if g >= n * C:
-                continue
-            at = (g // C) * C + g % C
-            bad = 0
-            for col in tcols:
-                if col < nv:
-                    recv = flat[[w * n * n * C + at + (k + col) * n * C
-                                 for w in range(8)]]
-                    bad += int((words[:, col, g] != recv).any())
-                elif col == nv:
-                    vals[[w * n * C + g for w in range(8)]] = words[:, col, g]
-            if bad:
-                errs[g // C] += bad
-    vals = torch.where(vals >= 1 << 31, vals - (1 << 32), vals)
-    return vals.to(torch.int32).reshape(8, n, C), errs.to(torch.int32)
+    vals, errs, _ = _compare_model(flat, mp, band[0], ncp, nv, mb, "group")
+    out = torch.zeros(n, dtype=torch.int32)
+    for j, cnt in errs.items():
+        out[j] = cnt
+    return vals.reshape(8, n, C), out
+
+
+def _direct_model(packed, points, k, mb):
+    """hb_open_direct as the kernel runs it: one group of B lanes (lane
+    b), operand i at packed[w, i, b], the direct band re-laid side by side
+    (_direct_band_flat), CompareEpi charged to the source party: nerr[k +
+    col]. -> (sec [PL, B], nerr int32 [n], the number of atomics)."""
+    _, n, B = packed.shape
+    mp = (B, B, n * B, 0, 1, B, k)
+    flat = packed.reshape(-1).to(torch.int64) & M32
+    band, ncp = fod._direct_band_flat(points, k)
+    sec, errs, atomics = _compare_model(flat, mp, band, ncp, n - k, mb,
+                                        "source")
+    nerr = torch.zeros(n, dtype=torch.int32)
+    for col, cnt in errs.items():
+        nerr[k + col] = cnt
+    return sec.reshape(8, B), nerr, atomics
+
+
+def _check_model(chk, points, k, mb):
+    """hb_randousha_check as the kernel runs it: one group of ncheckp*sp
+    lanes (lane col*sp + slot), operand i at chk[w, i, col, slot], K2's
+    band, CompareEpi charged to the lane. -> (vals [PL, ncheckp, sp], errs
+    int32 [ncheckp, sp], the number of atomics)."""
+    _, n, ncheckp, sp = chk.shape
+    lanes = ncheckp * sp
+    mp = (lanes, lanes, n * lanes, 0, 1, lanes, k)
+    flat = chk.reshape(-1).to(torch.int64) & M32
+    band, ncp = fo._bands_np(points, k)[1]
+    vals, errs, atomics = _compare_model(flat, mp, band[0], ncp, n - k, mb,
+                                         "lane")
+    out = torch.zeros(lanes, dtype=torch.int32)
+    for g, cnt in errs.items():
+        out[g] = cnt
+    return vals.reshape(8, ncheckp, sp), out.reshape(ncheckp, sp), atomics
 
 
 def _cols_of_shares(n, k, C, seed):
@@ -187,6 +291,155 @@ def test_k2_compare_and_count_model_is_k2_plain(n, k, C, mb):
     assert torch.equal(vals, want_vals)
     assert torch.equal(errs, want_errs)
     assert errs.tolist() == [1, 1] + [0] * (n - 3) + [1]
+
+
+def _direct_faults(packed, n, k):
+    """Faults of the direct open's and the check's tests (lanes along the
+    last axis): source n-1 (the last compare column) at lanes 3 and 12 (16
+    lanes of one warp, one 64-lane block), source k (the first compare
+    column) at lane 70, interpolating party 0 at the last lane (every
+    compare column of that lane)."""
+    bad = packed.clone().reshape(8, n, -1)
+    bad[3, n - 1, 3] ^= 0x10
+    bad[0, n - 1, 12] ^= 1
+    bad[7, k, 70] ^= -(1 << 31)
+    bad[5, 0, -1] ^= 0x100
+    return bad.reshape(packed.shape)
+
+
+@pytest.mark.parametrize("n,k,C,mb", [(8, 3, 12, 1), (8, 3, 12, 2),
+                                      (8, 3, 12, 4), (8, 2, 12, 2),
+                                      (7, 3, 14, 1), (7, 2, 14, 4)])
+def test_direct_compare_and_count_model_is_the_plain_open(n, k, C, mb):
+    """The direct open on the core, modelled (B = n*C = 96 or 98 lanes: a
+    ragged 64-lane block; nv+1 = 6 or 7 columns, the last tile half empty
+    at 7). Honest shares: the secrets equal _open_direct_plain's, nerr 0,
+    no atomic. With _direct_faults the per-source counts equal the plain
+    version's: source n-1 three (two lanes of one warp in one atomic, and
+    the interpolating party's lane), source k two, every other validating
+    source one; one atomic per warp, column and 64-lane block that saw a
+    mismatch."""
+    cols, points = _cols_of_shares(n, k, C, 31 * n + k)
+    packed = cols.reshape(8, n, n * C)
+    sec, nerr, atomics = _direct_model(packed, points, k, mb)
+    want_sec, want_nerr = fod._open_direct_plain(packed, n, k, points)
+    assert torch.equal(sec, want_sec) and torch.equal(nerr, want_nerr)
+    assert not nerr.any() and atomics == 0
+    bad = _direct_faults(packed, n, k)
+    sec, nerr, atomics = _direct_model(bad, points, k, mb)
+    want_sec, want_nerr = fod._open_direct_plain(bad, n, k, points)
+    assert torch.equal(sec, want_sec) and torch.equal(nerr, want_nerr)
+    assert nerr.tolist() == [0] * k + [2] + [1] * (n - k - 2) + [3]
+    assert atomics == 2 + (n - k)
+
+
+@pytest.mark.parametrize("n,k,C,mb", [(8, 3, 40, 1), (8, 3, 40, 2),
+                                      (8, 4, 40, 4), (7, 3, 14, 2)])
+def test_check_compare_and_count_model_is_the_plain_check(n, k, C, mb):
+    """The per-column check on the core, modelled on check tensors whose
+    every (column, slot) lane is a codeword over the n parties (320 lanes
+    as 8 columns x 40 slots; 98 as 7 x 14: ragged 64-lane blocks; nv+1 = 5
+    at k=4, the last tile half empty). Honest: vals equal
+    _randousha_check_plain's, no error, no atomic. With _direct_faults the
+    per-lane counts equal the plain version's: 1 at lanes 3, 12 and 70,
+    n-k at the last lane."""
+    cols, points = _cols_of_shares(n, k, C, 17 * n + k)
+    chk = cols.reshape(8, n, n, C)
+    vals, errs, atomics = _check_model(chk, points, k, mb)
+    want_vals, want_errs = fr._randousha_check_plain(chk, k, points)
+    assert torch.equal(vals, want_vals) and torch.equal(errs, want_errs)
+    assert not errs.any() and atomics == 0
+    bad = _direct_faults(chk, n, k)
+    vals, errs, _ = _check_model(bad, points, k, mb)
+    want_vals, want_errs = fr._randousha_check_plain(bad, k, points)
+    assert torch.equal(vals, want_vals) and torch.equal(errs, want_errs)
+    flat = errs.reshape(-1)
+    assert {i: int(flat[i]) for i in flat.nonzero().reshape(-1).tolist()} \
+        == {3: 1, 12: 1, 70: 1, n * C - 1: n - k}
+
+
+# -- the direct open and the check against the reference (golden vectors) ---
+
+DIRECT = (8, 2, 12)        # n, t, chunks: 96 opened shares
+
+
+def _direct_input():
+    n, t, c = DIRECT
+    cols, points = _cols_of_shares(n, t + 1, c, 811)
+    return cols.reshape(8, n, n * c), points
+
+
+def _ref_direct_open():
+    """The reference's detect-only direct open (its Pallas _direct_kernel
+    in interpret mode, replicate=False) at n=8, t=2 over 96 shares, honest
+    and with _direct_faults."""
+    n, t, _ = DIRECT
+    packed, points = _direct_input()
+    out = {}
+    for case, x in (("honest", packed),
+                    ("faulted", _direct_faults(packed, n, t + 1))):
+        sec, nerr = ref_direct(jnp.asarray(to_reference_packed(x)), n, t,
+                               points, replicate=False)
+        out[case + ".packed"] = to_reference_packed(x)
+        out[case + ".sec"] = np.asarray(sec)
+        out[case + ".nerr"] = np.asarray(nerr)
+    return out
+
+
+def _check_direct_vs_reference(ref, case, mb):
+    n, t, _ = DIRECT
+    packed, points = _direct_input()
+    x = packed if case == "honest" else _direct_faults(packed, n, t + 1)
+    assert np.array_equal(to_reference_packed(x), ref[case + ".packed"])
+    sec, nerr, atomics = _direct_model(
+        from_reference_packed(ref[case + ".packed"], "cpu"), points, t + 1,
+        mb)
+    assert np.array_equal(to_reference_packed(sec), ref[case + ".sec"])
+    assert nerr.tolist() == ref[case + ".nerr"].tolist()
+    assert (atomics == 0) == (case == "honest")
+
+
+@pytest.mark.parametrize("case", ["honest", "faulted"])
+@pytest.mark.parametrize("mb", [1, 2, 4])
+def test_direct_model_is_the_reference_direct_open(case, mb):
+    """The direct open on the core, modelled, against the reference's
+    _direct_kernel (golden vectors, tests/_golden.py): secrets word for
+    word and the per-source counts, honest and faulted."""
+    _check_direct_vs_reference(golden("direct_open"), case, mb)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("case", ["honest", "faulted"])
+def test_direct_model_is_the_reference_direct_open_live_reference(case):
+    _check_direct_vs_reference(_ref_direct_open(), case, 2)
+
+
+def _check_vs_reference(flat, deg, mb):
+    chk = from_reference_check(flat[deg + ".chk"], CPU)
+    k = GT + 1 if deg != "2t" else 2 * GT + 1
+    vals, errs, _ = _check_model(chk, tuple(range(1, GN + 1)), k, mb)
+    assert np.array_equal(to_reference_packed(vals), flat[deg + ".vals"])
+    assert np.array_equal(errs.numpy(), flat[deg + ".errs"][0])
+    assert bool(errs.any()) == (deg == "bad")
+
+
+@pytest.mark.parametrize("deg,mb", [("t", 1), ("2t", 2), ("bad", 4)])
+def test_check_model_is_the_reference_check(deg, mb):
+    """The per-column check on the core, modelled on the reference's check
+    tensors at n=8, t=2, 128 slots (1,024 lanes; golden vectors of
+    tests/test_torch_randousha_per_column.py): vals and per-lane errs equal
+    the reference's _kc_kernel at both degrees and with its flipped word."""
+    _check_vs_reference(golden("per_column_stages"), deg, mb)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("deg", ["t", "2t", "bad"])
+def test_check_model_is_the_reference_check_live_reference(deg):
+    from test_torch_randousha_per_column import _ref_stages
+    _check_vs_reference(_ref_stages(), deg, 2)
+
+
+GOLDEN = {"direct_open": _ref_direct_open}
 
 
 def _extract_pc_model(cols, band, n_out, n_outp, ncheckp, mb):

@@ -53,15 +53,43 @@ def _port(fn, a, v):
                                  from_reference_limbs(v, "cpu")))
 
 
-@pytest.mark.parametrize("B,k,n", [(256, 5, 7), (256, 22, 64), (130, 31, 8)])
-def test_fused2_route_vs_reference_and_ints(B, k, n):
-    """Row 13 (fp_matmul_mxu2, 1 REDC round at k <= 27, 2 above)."""
-    a, v = _mat(B + k, B, k), _mat(n, k, n)
+FUSED2_CASES = [(256, 5, 7), (256, 22, 64), (130, 31, 8)]
+
+
+def _fused2_inputs(B, k, n):
+    return _mat(B + k, B, k), _mat(n, k, n)
+
+
+def _ref_fused2_route():
+    """The reference's fp_matmul_mxu2 (interpret mode) at FUSED2_CASES."""
+    out = {}
+    for B, k, n in FUSED2_CASES:
+        a, v = _fused2_inputs(B, k, n)
+        out[f"{B}_{k}_{n}"] = np.asarray(
+            ref_mxu.fp_matmul_mxu2(jnp.asarray(a), jnp.asarray(v)))
+    return out
+
+
+def _check_fused2_route(want, B, k, n):
+    a, v = _fused2_inputs(B, k, n)
     got = _port(mxu.fp_matmul_mxu2, a, v)
-    want = np.asarray(ref_mxu.fp_matmul_mxu2(jnp.asarray(a), jnp.asarray(v)))
     assert np.array_equal(got, want)
     rows = [0, 1, B // 2, B - 1]
     assert limbs_to_ints(got[:, rows]).tolist() == _oracle_rows(a, v, rows)
+
+
+@pytest.mark.parametrize("B,k,n", FUSED2_CASES)
+def test_fused2_route_vs_reference_and_ints(B, k, n):
+    """Row 13 (fp_matmul_mxu2, 1 REDC round at k <= 27, 2 above), against
+    the reference's (golden vectors, tests/_golden.py) and Python ints."""
+    _check_fused2_route(golden("fp_matmul_fused2_route")[f"{B}_{k}_{n}"],
+                        B, k, n)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("B,k,n", FUSED2_CASES)
+def test_fused2_route_vs_reference_and_ints_live_reference(B, k, n):
+    _check_fused2_route(_ref_fused2_route()[f"{B}_{k}_{n}"], B, k, n)
 
 
 def test_unfused_route_vs_reference_and_ints():
@@ -214,25 +242,59 @@ def test_fused_route_plain_vs_reference_and_ints_live_reference():
 GOLDEN = {"fp_matmul_mxu_fused_route": _ref_fused_route}
 
 
-def test_epilogues_stay_exact_where_the_reference_wraps():
-    """The reference folds diagonal pairs d_2i + (d_2i+1 << 7) in uint32,
-    which wraps once a diagonal reaches 2^25 (here at k=256): its
-    _redc_diagonals and _fold_reduce then return wrong words. The port
-    keeps the sum exact, so rows 13 and 15 (and row 14, which shares the
-    epilogue) give Python ints; at k=55 and below the reference does not
-    wrap and the words are equal (ROADMAP Queue C)."""
+WRAP_CASES = ((55, False), (256, True))
+
+
+def _wrap_inputs(k):
     B, n = 2, 4
-    for k, wraps in ((55, False), (256, True)):
-        a, v = _mat(11 + k, B, k), _mat(12 + k, k, n)
-        want = _oracle_rows(a, v, range(B))
-        ta, tv = from_reference_limbs(a, "cpu"), from_reference_limbs(v, "cpu")
+    a, v = _mat(11 + k, B, k), _mat(12 + k, k, n)
+    return a, v, from_reference_limbs(a, "cpu"), from_reference_limbs(v, "cpu")
+
+
+def _ref_wrap():
+    """The reference's _redc_diagonals on the port's 73 diagonals of
+    WRAP_CASES' products, and those diagonals."""
+    out = {}
+    for k, _ in WRAP_CASES:
+        _, _, ta, tv = _wrap_inputs(k)
+        d = mxu._mxu_diagonals(ta, tv).numpy()
+        ref = ref_mxu._redc_diagonals([jnp.asarray(d[i]) for i in range(73)],
+                                      (d.shape[1],))
+        out[f"d_{k}"] = d
+        out[f"ref_{k}"] = np.stack([np.asarray(x) for x in ref]).reshape(
+            16, 2, 4)
+    return out
+
+
+def _check_wrap(ref):
+    for k, wraps in WRAP_CASES:
+        a, v, ta, tv = _wrap_inputs(k)
+        want = _oracle_rows(a, v, range(2))
         for fn in (mxu.fp_matmul_mxu, mxu.fp_matmul_mxu2):
             got = to_reference_limbs(fn(ta, tv))
             assert limbs_to_ints(got).tolist() == want
         d = mxu._mxu_diagonals(ta, tv).numpy()
-        ref = ref_mxu._redc_diagonals([jnp.asarray(d[i]) for i in range(73)],
-                                      (d.shape[1],))
-        ref = np.stack([np.asarray(x) for x in ref]).reshape(16, B, n)
-        assert (limbs_to_ints(ref).tolist() != want) == wraps
+        assert np.array_equal(d, ref[f"d_{k}"])
+        assert (limbs_to_ints(ref[f"ref_{k}"]).tolist() != want) == wraps
         assert (int(d.max()) >= 2 ** 25) == wraps
         assert mxu._pair_safe(k) == (k <= 55)
+
+
+def test_epilogues_stay_exact_where_the_reference_wraps():
+    """The reference folds diagonal pairs d_2i + (d_2i+1 << 7) in uint32,
+    which wraps once a diagonal reaches 2^25 (here at k=256): its
+    _redc_diagonals and _fold_reduce then return wrong words (golden
+    vectors, tests/_golden.py). The port keeps the sum exact, so rows 13
+    and 15 (and row 14, which shares the epilogue) give Python ints; at
+    k=55 and below the reference does not wrap and the words are equal
+    (ROADMAP Queue C)."""
+    _check_wrap(golden("fp_matmul_wrap"))
+
+
+@pytest.mark.slow
+def test_epilogues_stay_exact_where_the_reference_wraps_live_reference():
+    _check_wrap(_ref_wrap())
+
+
+GOLDEN.update({"fp_matmul_fused2_route": _ref_fused2_route,
+               "fp_matmul_wrap": _ref_wrap})

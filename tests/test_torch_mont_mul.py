@@ -25,6 +25,7 @@ from honeybadgermpc_tpu_torch.ops.fparray import FpArray
 from honeybadgermpc_tpu_torch.ops.limbs import (P, R_MOD_P, ints_to_limbs,
                                                 limbs_to_ints)
 
+from _golden import golden
 from _jax_memory import release_jax_memory  # noqa: F401
 
 RINV = pow(R_MOD_P, P - 2, P)
@@ -48,18 +49,42 @@ def _plain(limbs_np):
     return [int(v) * RINV % P for v in limbs_to_ints(limbs_np).reshape(-1)]
 
 
-def test_mont_mul_vs_reference_pallas_kernel():
-    """The reference's own Pallas kernel (interpret mode) at its test's
-    unaligned n=1500, against the port's plain version and Python ints."""
+def _mont_mul_inputs():
     edge = [0, 1, P - 1, P - 2, (P - 1) // 2, 0xFFFF, 1 << 254]
     xs = edge + _ints(1, 1500 - len(edge))
-    ys = _ints(2, 1500)
-    a, b = _mont_np(xs), _mont_np(ys)
-    want = np.asarray(ref_mul(jnp.asarray(a), jnp.asarray(b)))
-    got = fk.mont_mul_pallas(from_reference_limbs(a, "cpu"),
-                             from_reference_limbs(b, "cpu"))
+    return xs, _ints(2, 1500)
+
+
+def _ref_mont_mul():
+    """The reference's mont_mul_pallas (interpret mode) at its test's
+    unaligned n=1500."""
+    xs, ys = _mont_mul_inputs()
+    return {"out": np.asarray(ref_mul(jnp.asarray(_mont_np(xs)),
+                                      jnp.asarray(_mont_np(ys))))}
+
+
+def _check_mont_mul(ref):
+    xs, ys = _mont_mul_inputs()
+    want = ref["out"]
+    got = fk.mont_mul_pallas(from_reference_limbs(_mont_np(xs), "cpu"),
+                             from_reference_limbs(_mont_np(ys), "cpu"))
     assert np.array_equal(to_reference_limbs(got), want)
     assert _plain(want)[:64] == [x * y % P for x, y in zip(xs, ys)][:64]
+
+
+def test_mont_mul_vs_reference_pallas_kernel():
+    """The reference's own Pallas kernel (interpret mode; golden vectors,
+    tests/_golden.py) at its test's unaligned n=1500, against the port's
+    plain version and Python ints."""
+    _check_mont_mul(golden("mont_mul_1500"))
+
+
+@pytest.mark.slow
+def test_mont_mul_vs_reference_pallas_kernel_live_reference():
+    _check_mont_mul(_ref_mont_mul())
+
+
+GOLDEN = {"mont_mul_1500": _ref_mont_mul}
 
 
 def test_mont_mul_broadcasts_like_the_reference():

@@ -50,10 +50,17 @@ N_OUT, N_OUTP = N - 2 * T, 8
 CNTP = N_OUTP * K
 
 
-@pytest.fixture(scope="module")
-def subkeys():
+def _live_subkeys():
     parts = jax.random.split(jax.random.PRNGKey(3), 3)
     return [np.asarray(ref_key_data(k)) for k in parts]
+
+
+@pytest.fixture(scope="module")
+def subkeys():
+    """The key data of the reference's jax.random.split(PRNGKey(3), 3), as
+    the golden vectors store them (the live twins hold them equal to a live
+    split)."""
+    return list(golden("triples")["subkeys"])
 
 
 def _ref_triples(subkeys=None):
@@ -61,8 +68,7 @@ def _ref_triples(subkeys=None):
     on the key data of its own split of PRNGKey(3) (see the module
     docstring)."""
     if subkeys is None:
-        subkeys = [np.asarray(ref_key_data(k))
-                   for k in jax.random.split(jax.random.PRNGKey(3), 3)]
+        subkeys = _live_subkeys()
     ka, kb, kr = (jnp.asarray(k) for k in subkeys)
     pa, oka = ref_fr.sim_ransha_fused(ka, N, T, K, padded=True)
     pb, okb = ref_fr.sim_ransha_fused(kb, N, T, K, padded=True)
@@ -97,7 +103,9 @@ def reference(subkeys):
 
 @pytest.fixture(scope="module")
 def live_reference(subkeys):
-    return _as_tuple(_ref_triples(subkeys), subkeys)
+    live = _live_subkeys()
+    assert np.array_equal(np.stack(live), np.stack(subkeys))
+    return _as_tuple(_ref_triples(live), live)
 
 
 GOLDEN = {"triples": _ref_triples}
@@ -186,9 +194,7 @@ def test_opened_triples_multiply_python_ints(port):
     assert not a[N_OUT + 1:].any() and not ab[N_OUT + 1:].any()
 
 
-def test_port_key_split_runs_the_same_program(port):
-    """With one key the port derives the sub-keys with its own split_key;
-    the program is the same function of the three pairs."""
+def _check_key_split(port):
     fn = offline.sim_offline_jit("generate_triples_packed", N, T, K,
                                  device="cpu")
     key = (2024, 7)
@@ -201,6 +207,21 @@ def test_port_key_split_runs_the_same_program(port):
         fn()
     with pytest.raises(ValueError):
         fn(key, subkeys=tuple(split_key(key, 3)))
+
+
+def test_port_key_split_runs_the_same_program(port):
+    """With one key the port derives the sub-keys with its own split_key;
+    the program is the same function of the three pairs (the port's run on
+    the reference's sub-keys, from the golden vectors, differs from it)."""
+    _check_key_split(port)
+
+
+@pytest.mark.slow
+def test_port_key_split_runs_the_same_program_live_reference(
+        live_reference, port):
+    """The same, with the reference's split computed live (the
+    live_reference fixture holds it equal to the stored one)."""
+    _check_key_split(port)
 
 
 def test_sim_backend_gate_and_unported_programs():
