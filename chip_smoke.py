@@ -71,7 +71,10 @@ Phases, each printing one JSON line; any failure exits non-zero (18 and
  11 robust kernels    rows 9, 12, 13 and 15 of PERF.md (mont_mul,
               fp_matmul_cios, mxu_fused2, mxu_redc) against their plain
               versions on the card, bit for bit, at the robust open's
-              shapes, a Python-int sample each, times and bounds
+              shapes, a Python-int sample each, times and bounds; row 13
+              (on the wgmma core) also at B = 1, 63, 65, 1031 and 49,152,
+              k = 1, 27, 28, 32, 33, 55, 56 and 438, n = 4, 5, 8, 16, 43
+              and 64 (ROW13_EDGES)
  12 robust open       honest: nerr == 0 and no Gao launch; 21 faulty
               parties: phase one sees them, the redo returns the honest
               secrets with nerr == 768*21 at every party, the other three
@@ -97,11 +100,13 @@ Phases, each printing one JSON line; any failure exits non-zero (18 and
  15 program fault     generate_triples with the fallback at k=16 and one
               party sending wrong shares of a*b + r: the outputs equal the
               honest run's, ok turns false
- 16 coding kernels    rows 14 and 13 (mxu_fused, mxu_fused2) against their
-              plain versions on the card, bit for bit, at every window
-              fp_matmul routes to them (row 14: k 439-858 at n=4, 313-422
-              at n=8, 196-204 at n=16; row 13 k-streamed up to k=438), a
-              Python-int sample each, times and bounds; fp_matmul on CUDA
+ 16 coding kernels    rows 14 and 13 (mxu_fused, mxu_fused2, on the wgmma
+              core) against their plain versions on the card, bit for
+              bit, at every window fp_matmul routes to them (row 14: k
+              439-858 at n=4, 313-422 at n=8, 196-204 at n=16; row 13 with
+              streamed planes up to k=438), row 14 also at B = 1, 63, 65
+              and 1031 (ROW14_EDGES), a Python-int sample each, times and
+              bounds; fp_matmul on CUDA
               tensors at both sides of every window edge: no raise, the
               routed kernel launched, no plain version on the card
  17 ntl       with the launch counts set to 0 just before: the bench grids
@@ -1139,8 +1144,8 @@ def matmul_oracle(a, v, rows, cols):
 def check_oracle(got, a, v, what):
     """A sample of got [L, B, n] against matmul_oracle."""
     B, n = got.shape[1], got.shape[2]
-    rows = [0, 1, B // 2, B - 1, B // 3]
-    cols = [0, n - 1, n // 2, 1, n // 3]
+    rows = [r % B for r in (0, 1, B // 2, B - 1, B // 3)]
+    cols = [c % n for c in (0, n - 1, n // 2, 1, n // 3)]
     want = matmul_oracle(a, v, rows, cols)
     have = [mont_limbs_ints(got[:, b, c])[0] for b, c in zip(rows, cols)]
     check(have == want, f"{what}: kernel != Python-int oracle")
@@ -1294,7 +1299,7 @@ def phase_kernels_robust(dev):
                           _matmul_kernel(a, v, mul=mont._mont_mul_plain)),
               f"fp_matmul_cios != plain at {(bb, k, n)}")
         shapes.append(f"fp_matmul_cios B={bb} k={k} n={n}")
-    for bb, k, n in ((130, 31, 8), (300, N, 8), (256, K, N)):
+    for bb, k, n in ((130, 31, 8), (300, N, 8), (256, K, N)) + ROW13_EDGES:
         a, v = rand_field(dev, (62, bb), (bb, k)), rand_field(dev, (63, n),
                                                                (k, n))
         r = mxu._rounds_for(k)
@@ -1875,6 +1880,17 @@ def phase_program_fault(dev):
 
 # -- the coding layer: rows 13 and 14 against their plain versions ----------
 
+# (B, k, n): rows 13 and 14 on the wgmma core at its edges: one lane, ragged
+# 64- and 128-lane blocks, a batch of blocks; one chunk of 16 operands and
+# the chunk edges (k = 32, 33), the REDC round edge (27, 28), the pair edge
+# (55, 56), streamed planes (k >= 39); one, two and ragged tiles of columns
+ROW13_EDGES = ((1, 1, 4), (1, 56, 64), (63, 27, 5), (63, 28, 43),
+               (65, 32, 8), (65, 33, 16), (1031, 55, 43), (1031, 56, 5),
+               (1031, 27, 64), (1031, 1, 16), (49152, 28, 8), (49152, 33, 4),
+               (1, 438, 4), (65, 438, 5))
+ROW14_EDGES = ((1, 439, 4), (63, 858, 4), (65, 439, 5), (1031, 858, 8),
+               (1031, 439, 16), (1, 9, 12), (1031, 56, 5))
+
 # row 14's windows (n -> contractions) and row 13's streamed shapes, PERF.md
 ROW14_SHAPES = ((4, 439), (4, 512), (4, 858), (8, 313), (8, 422),
                 (16, 196), (16, 204))
@@ -1934,6 +1950,15 @@ def phase_kernels_coding(dev):
                     kernel_ms(lambda: mxu._fused_cuda(a, v), 10, "Redc73"),
                     timed_once(lambda: mxu._fused_plain(a, v)),
                     fused_bound(bb, k, n))
+    for bb, k, n in ROW14_EDGES:
+        a = rand_field(dev, (86, bb + k), (bb, k))
+        v = rand_field(dev, (87, n + k), (k, n))
+        got = mxu._fused_cuda(a, v)
+        sync()
+        check(torch.equal(got, mxu._fused_plain(a, v)),
+              f"mxu_fused != plain at B={bb} k={k} n={n}")
+        check_oracle(got, a, v, f"mxu_fused B={bb} k={k} n={n}")
+        shapes.append(f"mxu_fused B={bb} k={k} n={n}")
     for i, (n, k) in enumerate(ROW13_SHAPES + ((4, 438),)):
         bb = CODING_B if i == len(ROW13_SHAPES) else (1024, 1031)[i % 2]
         a = rand_field(dev, (82, bb + k), (bb, k))
@@ -2522,8 +2547,9 @@ def phase_per_column(dev, reps):
 
 def ptxas_core(log):
     """Registers and spill bytes of the kernels on csrc/band_gemm.cuh, from
-    ptxas' report in the build log: {"<kernel> lanes=<64 MB>":
-    "<registers> registers, <stores>/<loads> spill bytes"}."""
+    ptxas' report in the build log: {"<kernel> lanes=<64 MB>" (rows 13 and
+    14: "<kernel> rounds=<r> pair=<0|1>"): "<registers> registers,
+    <stores>/<loads> spill bytes"}."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '_ZN2hb(\d+)(\w+)'", ln)
@@ -2531,6 +2557,14 @@ def ptxas_core(log):
             spills = "spills not reported"
             kern, rest = m.group(2)[:int(m.group(1))], m.group(2)
             mb = re.match(r"ILi(\d)E", rest[len(kern):])
+            f37 = re.search(r"Fold37ILi(\d)ELb(\d)E", rest)
+            r73 = re.search(r"Redc73ILb(\d)E", rest)
+            if kern == "mxu_fused2_kernel" and f37:
+                name = f"{kern} rounds={f37.group(1)} pair={f37.group(2)}"
+                continue
+            if kern == "mxu_fused_kernel" and r73:
+                name = f"{kern} pair={r73.group(1)}"
+                continue
             name = f"{kern} lanes={64 * int(mb.group(1))}" if mb and kern in (
                 "band_matmul_kernel", "open_direct_kernel",
                 "open_fused_k1_kernel", "open_fused_k2_kernel",
@@ -2708,7 +2742,7 @@ def kernels_line(times, err, launches, launches_triples, launches_robust,
         if name in ("band_matmul", "open_direct", "open_fused_k1",
                     "open_fused_k2", "randousha_check",
                     "randousha_extract_pc", "randousha_deal",
-                    "randousha_extract"):
+                    "randousha_extract", "mxu_fused2", "mxu_fused"):
             row["core"] = "honeybadgermpc_tpu_torch/csrc/band_gemm.cuh"
         if name == "band_matmul":
             row["eager_shapes"] = []

@@ -3,10 +3,12 @@
 // (band_matmul.cu), the direct open (open_direct.cu), K1 and K2 of the
 // three-kernel open and the per-column check (open_fused.cu), the deal
 // (randousha_deal.cu) and both extractions (randousha_extract.cu); each
-// brings its own operand source and epilogue policy (below). The other
-// band kernels (K3, and the direct open above k = 81, where the planes of
-// a 64-lane block no longer fit shared memory) keep field_core.cuh's
-// mma.sync core.
+// brings its own operand source and epilogue policy (below). The MXU
+// field matmuls (mxu_fused2.cu, mxu_fused.cu) run on a sibling body at the
+// end of this header, mxu_gemm_body, on the same PTX layer and rings. The
+// other band kernels (K3, and the direct open above k = 81, where the
+// planes of a 64-lane block no longer fit shared memory) keep
+// field_core.cuh's mma.sync core.
 //
 // The function (ops/fused_open.py's plain core): for each lane, k packed
 // operands -> 32 balanced int8 digits each (the planes), dotted with every
@@ -773,6 +775,489 @@ int launch(Kernel kern, const void* src, const void* band,
            void* stream) {
   return launch_with<MB>(kern, static_cast<const uint32_t*>(src), band, mp,
                          epi, fold, stream);
+}
+
+// ---------------------------------------------------------------------------
+// The MXU geometry: GF(p) matmuls through unsigned 7-bit digit planes
+// (rows 13 and 14 of PERF.md: mxu_fused2.cu, mxu_fused.cu)
+// ---------------------------------------------------------------------------
+//
+// The same GEMM with another operand and another band:
+//
+//   D[lanes, cols x ND] = P[lanes, 37k] . Band^T[37k, cols x ND]
+//
+// P holds the 37 unsigned 7-bit digits of each of a lane's k operands
+// (16-bit limbs in, digit d = bits 7d..7d+6); a column's band holds ND = 37
+// (row 13, the folded scheme) or 73 (row 14, the product convolution)
+// diagonals. The epilogue policy `Epi` (mxu_core.cuh's Fold37 or Redc73)
+// turns a (lane, column)'s ND int32 diagonals into its 16 limbs.
+//
+//   chunks     the contraction runs in chunks of MXU_KC = 16 operands: chunk
+//              c holds operands 16c.. at digit rows q = 37 (kk % 16) + d,
+//              padded to whole k-steps of 32 (19 for a full chunk; the
+//              last chunk ceil(37 kc / 32)). The band's digit rows follow
+//              the same order; its padding rows are zero, so whatever the
+//              planes hold there adds nothing.
+//   planes     wgmma's K-major canonical layout per chunk, [k-step][16-byte
+//              half][lane octet][lane % 8][16], built by a plane
+//              warpgroup: an item is (lane, 4 operands) -> 148 digit bytes
+//              = 37 aligned words (operand e's digit d at byte 37 e + d),
+//              the 8 lanes x 4 items of a warp on 32 distinct banks.
+//              Resident (nbuf = chunks): every chunk stays, built once
+//              while the consumers start on the first. Streamed (nbuf = 2,
+//              when the planes of k operands do not fit): two chunk buffers
+//              behind mbarriers (full: built; empty: every consumer's
+//              wgmmas on it are done), the next chunk's limb loads and
+//              digit split under the current chunk's wgmmas.
+//   band       tiles of MXU_TN = 80 rows, one wgmma B operand per (tile,
+//              k-step): 2 columns of 37 diagonals (H = 2 threads of a quad
+//              per column) or 1 column of 73 (H = 4). Band row r is
+//              column (r % 8) / 2 / H of the tile and diagonal
+//              20 ((r % 8) / 2 % H) + 2 (r / 8) + r % 2, zero past ND: in
+//              the accumulator layout thread tg of a quad holds, for its
+//              two rows, diagonals 20 (tg % H) .. + 19 of column tg / H
+//              (ops/mxu_matmul.py::_mxu_tile_rows). Streamed by each
+//              consumer's producer warp into its ring, as above.
+//   dot        wgmma.m64n80k32.s32.s8.s8: per k-step MB wgmmas (one per
+//              64-lane block) on one tile; 40 MB accumulators per thread.
+//   tiles      resident: consumer warpgroup w takes tiles w, w + 2, ..., so
+//              one's epilogue runs under the other's dot. Streamed: each
+//              consumer holds one tile across all chunks, and the grid
+//              has ceil(tiles / 2) blocks per 128 lanes, neighbours in
+//              launch order so that their limb reads meet in L2.
+//   epilogue   straight from the accumulators. A column's 2 MB lane slots
+//              (64-lane block, row g or g + 8) go round its H threads: each
+//              thread sends, over H - 1 __shfl_xor_sync rounds, its 20
+//              diagonals of the slots the others own and receives theirs
+//              of its own, then runs Epi on the ND diagonals of its slots.
+//   results    out is [limb][lane][column]: a tile's 2 columns (or 1) are
+//              8 bytes of a lane's row, and any store that leaves a
+//              32-byte sector partly written cost as much as the old
+//              kernel's 4-byte scatter. Where the block holds all columns
+//              (one tile group), the consumers store 16-bit limbs to a
+//              scratch [block][limb][column][lane] (16 lanes, 32 bytes per
+//              store) and, once every tile is done, write out by whole lane
+//              rows through the free planes and rings (mxu_transpose);
+//              else (tile groups: small n) they store to out directly.
+
+constexpr int MXU_L = 16;                    // limbs per element
+constexpr int MXU_NDIG = 37;                 // 7-bit digits per operand
+constexpr int MXU_KC = 16;                   // operands per plane chunk
+constexpr int MXU_CHUNK_STEPS = (MXU_KC * MXU_NDIG + 31) / 32;   // 19
+constexpr int MXU_TN = 80;                   // band rows per tile: wgmma N
+constexpr int MXU_HALF = MXU_TN / 4;         // diagonals per thread and row
+constexpr int MXU_STEP_BYTES = MXU_TN * 32;  // one k-step of one tile
+constexpr int MXU_KS = 4;                    // k-steps per ring slot
+constexpr int MXU_SLOT_BYTES = MXU_KS * MXU_STEP_BYTES;
+constexpr int MXU_SLOTS = 2;                 // slots of each ring
+constexpr int MXU_CONS = 2;                  // consumer warpgroups
+constexpr int MXU_NBAR = 16;                 // chunk mbarriers of each kind
+constexpr int MXU_THREADS = MXU_CONS * 128 + 128 + MXU_CONS * 32;
+
+// k-steps of chunk c of a contraction over k operands.
+__host__ __device__ inline int mxu_chunk_steps(int k, int c) {
+  const int kc = k - MXU_KC * c < MXU_KC ? k - MXU_KC * c : MXU_KC;
+  return (MXU_NDIG * kc + 31) / 32;
+}
+
+__host__ __device__ inline int mxu_ksteps(int k) {
+  return (k / MXU_KC) * MXU_CHUNK_STEPS +
+         (k % MXU_KC ? mxu_chunk_steps(k, k / MXU_KC) : 0);
+}
+
+// Dynamic shared memory of a block of 64 MB lanes with nbuf chunk buffers
+// (resident: nbuf = chunks, sized to the contraction's k-steps).
+__host__ __device__ inline size_t mxu_smem_bytes(int k, int mb, int nbuf) {
+  const int nch = (k + MXU_KC - 1) / MXU_KC;
+  const size_t steps = nbuf >= nch ? static_cast<size_t>(mxu_ksteps(k))
+                                   : static_cast<size_t>(nbuf) *
+                                         MXU_CHUNK_STEPS;
+  return steps * 32 * 64 * mb +
+         static_cast<size_t>(MXU_CONS) * MXU_SLOTS * MXU_SLOT_BYTES +
+         16 * (MXU_CONS * MXU_SLOTS + MXU_NBAR);
+}
+
+__device__ __forceinline__ void acc_fence40(int (&d)[40]) {
+#pragma unroll
+  for (int i = 0; i < 40; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+// D[64 x 80] (+)= A[64 x 32] . B[80 x 32]^T, int8 -> int32; scale_d = 0
+// overwrites D.
+__device__ __forceinline__ void mxu_wgmma(int (&d)[40], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
+      "%40, %41, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]),
+        "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The plane warpgroup: the block's chunks, in order, into their buffers
+// (chunk c in buffer c % nbuf, that buffer's c / nbuf-th use). An item is
+// (lane, 4 operands), a warp takes one
+// lane octet at a time, thread (l8, jq) = (t % 8, t / 8 % 4). Its 64
+// limbs are loaded 4 operands at a time (16 bytes) where k % 4 == 0, 2
+// where k is even (and `a` aligned to match), else one by one; operands
+// past k and lanes past B are zeros. The 148 digit bytes go out as 37
+// words (operand e's digit d at byte 37 e + d), none past the chunk's
+// k-steps (a resident last chunk ends there).
+template <int MB>
+__device__ __forceinline__ void mxu_build_block(
+    unsigned char* bufs, const uint32_t* __restrict__ a, long long B, int k,
+    long long lane0, int nbuf, uint32_t cfull_s, uint32_t cempty_s) {
+  constexpr int TM = 64 * MB;
+  constexpr int OCT = TM / 8;
+  const int nch = (k + MXU_KC - 1) / MXU_KC;
+  const size_t chunk_bytes = static_cast<size_t>(MXU_CHUNK_STEPS) * 32 * TM;
+  const int bt = threadIdx.x - MXU_CONS * 128;
+  const int bw = bt >> 5, l8 = bt & 7, jq = (bt >> 3) & 3;
+  const size_t Bk = static_cast<size_t>(B) * k;
+  const uintptr_t base = reinterpret_cast<uintptr_t>(a);
+  const int vw = k % 4 == 0 && base % 16 == 0 ? 4
+                 : (k % 2 == 0 && base % 8 == 0 ? 2 : 1);
+  for (int c = 0; c < nch; ++c) {
+    const int b = c % nbuf;
+    if (c >= nbuf) mbar_wait(cempty_s + 8 * b, ((c / nbuf) - 1) & 1);
+    unsigned char* row = bufs + b * chunk_bytes + l8 * 16;
+    const int qend = 32 * mxu_chunk_steps(k, c);
+    const int kk0 = MXU_KC * c + 4 * jq;
+    for (int oct = bw; kk0 < k && oct < OCT; oct += 4) {
+      const long long lane = lane0 + 8 * oct + l8;
+      const uint32_t* p = a + static_cast<size_t>(lane) * k + kk0;
+      uint32_t l[4][MXU_L];
+      if (lane < B && kk0 + 3 < k && vw == 4) {
+#pragma unroll
+        for (int j = 0; j < MXU_L; ++j) {
+          const uint4 v = __ldg(reinterpret_cast<const uint4*>(p + j * Bk));
+          l[0][j] = v.x; l[1][j] = v.y; l[2][j] = v.z; l[3][j] = v.w;
+        }
+      } else if (lane < B && kk0 + 3 < k && vw == 2) {
+#pragma unroll
+        for (int j = 0; j < MXU_L; ++j) {
+          const uint2 v0 = __ldg(reinterpret_cast<const uint2*>(p + j * Bk));
+          const uint2 v1 =
+              __ldg(reinterpret_cast<const uint2*>(p + j * Bk + 2));
+          l[0][j] = v0.x; l[1][j] = v0.y; l[2][j] = v1.x; l[3][j] = v1.y;
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool live = lane < B && kk0 + e < k;
+#pragma unroll
+          for (int j = 0; j < MXU_L; ++j)
+            l[e][j] = live ? __ldg(p + e + j * Bk) : 0u;
+        }
+      }
+      // the four operands as eight 32-bit words each
+      uint32_t w[4][9];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          w[e][i] = l[e][2 * i] | (l[e][2 * i + 1] << 16);
+        w[e][8] = 0u;
+      }
+#pragma unroll
+      for (int wd = 0; wd < MXU_NDIG; ++wd) {
+        uint32_t word = 0;
+#pragma unroll
+        for (int e4 = 0; e4 < 4; ++e4) {
+          const int t = 4 * wd + e4;                 // byte of the item
+          const int e = t / MXU_NDIG, d = t % MXU_NDIG;
+          const int bit = 7 * d, j = bit >> 5, r = bit & 31;
+          const uint32_t v =
+              r <= 25 ? (w[e][j] >> r)
+                      : __funnelshift_r(w[e][j], w[e][j + 1], r);
+          word |= (v & 0x7Fu) << (8 * e4);
+        }
+        const int q = 148 * jq + 4 * wd;             // digit row in the chunk
+        if (q < qend)
+          *reinterpret_cast<uint32_t*>(
+              row + ((q >> 4) * OCT + oct) * 128 + (q & 15)) = word;
+      }
+    }
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_arrive(cfull_s + 8 * b);
+  }
+}
+
+// The consumers write the block's results out once every tile is done:
+// 16-bit limbs [limb][column][lane] in tb (their scratch) to out[limb]
+// [lane][col], lj limbs at a time through the planes and rings (free now;
+// rows of `stride` words per lane, odd: no bank conflicts). Rows of 128
+// lanes come in as 16-byte loads, 8 in flight per thread; whole lane rows
+// go out, so every sector of out is written whole.
+template <int MB>
+__device__ __forceinline__ void mxu_transpose(
+    uint32_t* sm, const uint16_t* __restrict__ tb, uint32_t* __restrict__ out,
+    long long B, int n, int ncolsp, long long lane0, int lj) {
+  constexpr int TM = 64 * MB;
+  constexpr int NT = MXU_CONS * 128;         // consumer threads
+  const int t = threadIdx.x;
+  const int tw = t >> 5, laneid = t & 31;
+  const int stride = ncolsp | 1;
+  const int nval = B - lane0 < TM ? static_cast<int>(B - lane0) : TM;
+  const size_t Bn = static_cast<size_t>(B) * n;
+  // (the transpose)
+  for (int j0 = 0; j0 < MXU_L; j0 += lj) {
+    const int nj = MXU_L - j0 < lj ? MXU_L - j0 : lj;
+    const int items = nj * n * (TM / 8);     // 8 lanes of one (limb, column)
+    // every tile's results are in tb and the dot's reads of shared memory
+    // are done, or the last step's reads of the staging are
+    asm volatile("bar.sync 1, %0;\n" ::"n"(NT) : "memory");
+    for (int i0 = t; i0 < items; i0 += 8 * NT) {
+      uint4 v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int i = i0 + u * NT;
+        const int jc = i / (TM / 8), l0 = 8 * (i % (TM / 8));
+        const int jj = jc / n, c = jc - jj * n;
+        if (i < items)
+          v[u] = __ldcg(reinterpret_cast<const uint4*>(
+              tb + (static_cast<size_t>(j0 + jj) * ncolsp + c) * TM + l0));
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int i = i0 + u * NT;
+        const int jc = i / (TM / 8), l0 = 8 * (i % (TM / 8));
+        const int jj = jc / n, c = jc - jj * n;
+        if (i < items) {
+          uint32_t* d = sm + (jj * TM + l0) * stride + c;
+          const uint32_t w4[4] = {v[u].x, v[u].y, v[u].z, v[u].w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            d[(2 * e) * stride] = w4[e] & 0xFFFFu;
+            d[(2 * e + 1) * stride] = w4[e] >> 16;
+          }
+        }
+      }
+    }
+    asm volatile("bar.sync 1, %0;\n" ::"n"(NT) : "memory");
+    for (int jj = 0; jj < nj; ++jj) {
+      uint32_t* dst = out + static_cast<size_t>(j0 + jj) * Bn +
+                      static_cast<size_t>(lane0) * n;
+      for (int r = tw; r < nval; r += NT / 32)
+        for (int c = laneid; c < n; c += 32)
+          dst[static_cast<size_t>(r) * n + c] = sm[(jj * TM + r) * stride + c];
+    }
+  }
+}
+
+// This thread's diagonal 20 part + j (j < 20, part = tg % H) of lane slot
+// s = 2 mb + h (row g + 8h of 64-lane block mb): accumulator 4 (j / 2) +
+// 2h + j % 2 of block mb. s is known at run time only; j after unrolling.
+template <int MB>
+__device__ __forceinline__ int mxu_slot_diag(const int (&acc)[MB][40], int s,
+                                             int j) {
+  int v = 0;
+#pragma unroll
+  for (int x = 0; x < 2 * MB; ++x)
+    if (x == s) v = acc[x >> 1][4 * (j >> 1) + 2 * (x & 1) + (j & 1)];
+  return v;
+}
+
+template <int MB, int H, class Epi>
+__device__ __forceinline__ void mxu_gemm_body(
+    unsigned char* smem, const uint32_t* __restrict__ a,
+    const unsigned char* __restrict__ band, uint32_t* __restrict__ out,
+    uint16_t* __restrict__ tmp, long long B, int k, int n, int tgroups,
+    int nbuf) {
+  constexpr int TM = 64 * MB;
+  constexpr int OCT = TM / 8;
+  constexpr int CPT = 4 / H;                 // columns per tile
+  constexpr int ND = Epi::NDIAG;
+  constexpr int NSLOT = MXU_CONS * MXU_SLOTS;
+  constexpr int OWN = 2 * MB / H;            // lane slots a thread owns
+  static_assert(H * MXU_HALF >= ND && 2 * MB % H == 0, "MXU geometry");
+  const int ntiles = (n + CPT - 1) / CPT;
+  const int nch = (k + MXU_KC - 1) / MXU_KC;
+  const int ksteps = mxu_ksteps(k);
+  const bool stream = nbuf < nch;
+  const int tpg = tgroups == 1 ? ntiles : MXU_CONS;
+  const long long lane0 = static_cast<long long>(blockIdx.x / tgroups) * TM;
+  const int t0 = static_cast<int>(blockIdx.x % tgroups) * tpg;
+  const int t1 = t0 + tpg < ntiles ? t0 + tpg : ntiles;
+  const int active = t1 - t0 < MXU_CONS ? t1 - t0 : MXU_CONS;
+  const size_t chunk_bytes = static_cast<size_t>(MXU_CHUNK_STEPS) * 32 * TM;
+  auto buf_off = [&](int c) { return (c % nbuf) * chunk_bytes; };
+  const int ncolsp = ntiles * CPT;           // tmp's columns
+  unsigned char* bufs = smem;
+  const size_t plane_bytes =
+      stream ? nbuf * chunk_bytes : static_cast<size_t>(ksteps) * 32 * TM;
+  const uint32_t ring_s = smem_u32(smem + plane_bytes);
+  const uint32_t full_s = ring_s + NSLOT * MXU_SLOT_BYTES;   // ring mbarriers
+  const uint32_t empty_s = full_s + 8 * NSLOT;
+  const uint32_t cfull_s = empty_s + 8 * NSLOT;              // chunk mbarriers
+  const uint32_t cempty_s = cfull_s + 8 * MXU_NBAR;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, laneid = tid & 31;
+  uint16_t* const tblk =                     // this block's scratch
+      tmp == nullptr ? nullptr
+                     : tmp + static_cast<size_t>(blockIdx.x) * MXU_L *
+                                 ncolsp * TM;
+
+  if (tid == 0) {
+    for (int s = 0; s < NSLOT; ++s) {
+      mbar_init(full_s + 8 * s, 1);
+      mbar_init(empty_s + 8 * s, 4);
+    }
+    for (int b = 0; b < nbuf && b < MXU_NBAR; ++b) {
+      mbar_init(cfull_s + 8 * b, 128);               // each plane thread
+      mbar_init(cempty_s + 8 * b, 4 * active);       // every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= MXU_CONS * 4 + 4) {                    // producer of ring pr
+    const int pr = warp - (MXU_CONS * 4 + 4);
+    if (laneid != 0 || pr >= active) return;
+    const int nst = (ksteps + MXU_KS - 1) / MXU_KS;
+    const int mine = (t1 - t0 - pr + MXU_CONS - 1) / MXU_CONS;
+    for (int sr = 0; sr < mine * nst; ++sr) {
+      const int ct = t0 + pr + (sr / nst) * MXU_CONS;
+      const int kk0 = (sr % nst) * MXU_KS;
+      const int steps = ksteps - kk0 < MXU_KS ? ksteps - kk0 : MXU_KS;
+      const int slot = pr * MXU_SLOTS + sr % MXU_SLOTS;
+      if (sr >= MXU_SLOTS)
+        mbar_wait(empty_s + 8 * slot, ((sr / MXU_SLOTS) - 1) & 1);
+      mbar_expect_tx(full_s + 8 * slot, steps * MXU_STEP_BYTES);
+      bulk_load(ring_s + slot * MXU_SLOT_BYTES,
+                band + (static_cast<size_t>(ct) * ksteps + kk0) *
+                           MXU_STEP_BYTES,
+                steps * MXU_STEP_BYTES, full_s + 8 * slot);
+    }
+    return;
+  }
+  if (warp >= MXU_CONS * 4) {                        // the plane warpgroup
+    mxu_build_block<MB>(bufs, a, B, k, lane0, nbuf, cfull_s, cempty_s);
+    return;
+  }
+
+  // the consumers
+  const int wgi = warp >> 2;                 // consumer warpgroup = its ring
+  const int wl = warp & 3;                   // warp within it: rows 16wl..
+  const int g = laneid >> 2, tg = laneid & 3;
+  const int part = tg % H;                   // diagonals 20 part .. + 19
+  const int cl = tg / H;                     // column within the tile
+  const uint32_t planes_s = smem_u32(bufs);
+  const size_t Bn = static_cast<size_t>(B) * n;
+  int acc[MB][40];
+#pragma unroll
+  for (int mb = 0; mb < MB; ++mb)
+#pragma unroll
+    for (int i = 0; i < 40; ++i) acc[mb][i] = 0;
+  int sr = 0;                                // this ring's load number
+  for (int ct = t0 + wgi; ct < t1; ct += MXU_CONS) {
+    int ks = 0;
+    for (int c = 0; c < nch; ++c) {
+      const int b = c % nbuf;
+      mbar_wait(cfull_s + 8 * b, (c / nbuf) & 1);
+      const int csteps = mxu_chunk_steps(k, c);
+      const uint32_t cbase = planes_s + static_cast<uint32_t>(buf_off(c));
+      for (int kl = 0; kl < csteps; ++kl, ++ks) {
+        const int slot = wgi * MXU_SLOTS + sr % MXU_SLOTS;
+        if (ks % MXU_KS == 0)
+          mbar_wait(full_s + 8 * slot, (sr / MXU_SLOTS) & 1);
+        const uint64_t db = smem_desc(ring_s + slot * MXU_SLOT_BYTES +
+                                          (ks % MXU_KS) * MXU_STEP_BYTES,
+                                      (MXU_TN / 8) * 128, 128);
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb) acc_fence40(acc[mb]);
+        wgmma_fence();
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb) {
+          const uint64_t da =
+              smem_desc(cbase + (2 * kl * OCT + 8 * mb) * 128, 16 * TM, 128);
+          mxu_wgmma(acc[mb], da, db, ks > 0);
+        }
+        wgmma_commit();
+#pragma unroll
+        for (int mb = 0; mb < MB; ++mb) acc_fence40(acc[mb]);
+        if (ks > 0) wgmma_wait<1>();         // k-step ks-1 is done
+        if (ks % MXU_KS == 0 && ks > 0 && laneid == 0)   // ... its slot too
+          mbar_arrive(empty_s + 8 * (wgi * MXU_SLOTS + (sr - 1) % MXU_SLOTS));
+        if (stream && kl == 0 && c > 0 && laneid == 0)   // ... and its chunk
+          mbar_arrive(cempty_s + 8 * ((c - 1) % nbuf));
+        if (ks % MXU_KS == MXU_KS - 1 || ks == ksteps - 1) ++sr;
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int mb = 0; mb < MB; ++mb) acc_fence40(acc[mb]);
+    if (laneid == 0) {
+      mbar_arrive(empty_s + 8 * (wgi * MXU_SLOTS + (sr - 1) % MXU_SLOTS));
+      if (stream) mbar_arrive(cempty_s + 8 * ((nch - 1) % nbuf));
+    }
+
+    // the epilogue: exchange, fold, store
+    // Lane slot s = 2 mb + h (row g + 8h of 64-lane block mb) is owned by
+    // part s % H (mxu_slot_diag: this thread's diagonals of slot s).
+    const int col = ct * CPT + cl;
+#pragma unroll
+    for (int u = 0; u < OWN; ++u) {
+      // got[x][j]: diagonal 20 (part ^ x) + j of the slot u H + part
+      int got[H][MXU_HALF];
+#pragma unroll
+      for (int j = 0; j < MXU_HALF; ++j)
+        got[0][j] = mxu_slot_diag<MB>(acc, u * H + part, j);
+#pragma unroll
+      for (int o = 1; o < H; ++o)
+#pragma unroll
+        for (int j = 0; j < MXU_HALF; ++j)
+          got[o][j] = __shfl_xor_sync(
+              0xFFFFFFFFu, mxu_slot_diag<MB>(acc, u * H + (part ^ o), j), o);
+      int32_t ds[ND];
+#pragma unroll
+      for (int i = 0; i < ND; ++i) {
+        const int x = (i / MXU_HALF) ^ part;
+        int v = got[0][i % MXU_HALF];
+#pragma unroll
+        for (int o = 1; o < H; ++o)
+          if (x == o) v = got[o][i % MXU_HALF];
+        ds[i] = v;
+      }
+      uint32_t limbs[MXU_L];
+      Epi::run(ds, limbs);
+      const int s = u * H + part;
+      const int ll = 64 * (s >> 1) + 16 * wl + g + 8 * (s & 1);
+      const long long lane = lane0 + ll;
+      if (tblk != nullptr) {                 // 16 lanes x 32 B per store
+        uint16_t* dst = tblk + static_cast<size_t>(col) * TM + ll;
+#pragma unroll
+        for (int j = 0; j < MXU_L; ++j)
+          dst[static_cast<size_t>(j) * ncolsp * TM] =
+              static_cast<uint16_t>(limbs[j]);
+      } else if (lane < B && col < n) {
+        uint32_t* dst = out + static_cast<size_t>(lane) * n + col;
+#pragma unroll
+        for (int j = 0; j < MXU_L; ++j)
+          dst[static_cast<size_t>(j) * Bn] = limbs[j];
+      }
+    }
+    // end of the epilogue
+  }
+  if (tblk != nullptr)
+    mxu_transpose<MB>(reinterpret_cast<uint32_t*>(smem), tblk, out, B, n,
+                      ncolsp, lane0,
+                      static_cast<int>((full_s - planes_s) /
+                                       (static_cast<size_t>(TM) *
+                                        (ncolsp | 1) * 4)));
 }
 
 }  // namespace gemm

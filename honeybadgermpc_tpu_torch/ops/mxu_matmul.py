@@ -24,9 +24,12 @@ Three routes, chosen by shape exactly as the reference chooses
   ``csrc/mxu_redc.cu`` on a CUDA tensor. Where ``fused_fits`` holds it
   takes the fused kernel on the card, as the reference does on the TPU.
 
-Both fused kernels are csrc/mxu_core.cuh's k-streamed kernel: digit planes
-pass through shared memory in chunks of 32 operands, so every k that the
-reference's predicates route to them runs.
+Both fused kernels run on the wgmma core's MXU geometry
+(csrc/band_gemm.cuh, ``mxu_gemm_body``): the digit planes of 128 lanes in
+shared memory, in chunks of 16 operands (resident up to k = 38, else
+streamed through two chunk buffers), against band tiles of 80 rows
+(``_mxu_tiles``), so every k that the reference's predicates route to them
+runs.
 
 The plain versions mirror the reference's integer work in int64, with one
 deliberate difference: the reference folds adjacent diagonals in pairs,
@@ -39,6 +42,7 @@ shapes where the reference does not wrap the words are equal.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import montgomery as mont
@@ -250,19 +254,53 @@ def fused2_fits(k: int, n: int) -> bool:
     return band + d32 + ablk < 6 * 2 ** 20
 
 
-# -- the k-streamed kernels (rows 13 and 14, csrc/mxu_core.cuh) --------------
+# -- rows 13 and 14 on the wgmma core (csrc/band_gemm.cuh, mxu_gemm_body) ---
 
-_KC = 32                          # operands per streamed chunk
-_SMEM_MAX = 227 * 1024            # shared memory a Hopper block may use
-_D_STRIDE = 40                    # staging row stride (ints) per warp
-# m-tiles of 16 diagonals -> (threads per block, diagonals of the epilogue)
-_STREAM = {3: (512, NPLANES), 5: (256, NOUT)}
+MXU_KC = 16                       # operands per plane chunk
+CHUNK_STEPS = -(-(MXU_KC * NPLANES) // 32)    # 19 k-steps of 32 digit rows
+TN = 80                           # band rows per tile: wgmma N
+HALF = TN // 4                    # diagonals per thread and lane
+STEP_BYTES = TN * 32              # one k-step of one tile
+_KS = 4                           # k-steps per ring slot
+_SLOTS = 2                        # slots of each consumer's ring
+CONS = 2                          # consumer warpgroups
+_NBAR = 16                        # chunk mbarriers of each kind
+TM = 128                          # lanes per block
+SMEM_MAX = 232448                 # shared memory a Hopper block may use
 
 
-def _kcols(k: int) -> int:
-    """Digit rows k*37, padded to the 32 of an mma k-step. Chunks of 32
-    operands are 1184 = 37 x 32 rows, so chunking adds no padding."""
-    return -(-(k * NPLANES) // 32) * 32
+def _chunk_steps(k: int, c: int) -> int:
+    """k-steps of chunk c (operands 16c .. 16c + 15, 37 digit rows each)."""
+    return -(-(NPLANES * min(MXU_KC, k - MXU_KC * c)) // 32)
+
+
+def _mxu_ksteps(k: int) -> int:
+    """k-steps of the whole contraction (band_gemm.cuh's mxu_ksteps)."""
+    return sum(_chunk_steps(k, c) for c in range(-(-k // MXU_KC)))
+
+
+def _mxu_smem_bytes(k: int, nbuf: int) -> int:
+    """Dynamic shared memory of a 128-lane block with nbuf chunk buffers
+    (band_gemm.cuh's mxu_smem_bytes)."""
+    nch = -(-k // MXU_KC)
+    steps = _mxu_ksteps(k) if nbuf >= nch else nbuf * CHUNK_STEPS
+    return (steps * 32 * TM + CONS * _SLOTS * _KS * STEP_BYTES
+            + 16 * (CONS * _SLOTS + _NBAR))
+
+
+def _mxu_plan(k: int, n: int, h: int):
+    """(tile groups, chunk buffers, shared bytes) of a launch over k
+    operands and n columns, h threads per column (2 for row 13, 4 for row
+    14). Resident where the planes of all k operands fit beside the rings
+    (k <= 38): one block per 128 lanes walks every tile. Else two chunk
+    buffers, one tile per consumer, ceil(tiles / 2) blocks per 128
+    lanes."""
+    nch = -(-k // MXU_KC)
+    smem = _mxu_smem_bytes(k, nch)
+    if smem <= SMEM_MAX and nch <= _NBAR:
+        return 1, nch, smem
+    ntiles = -(-n // (4 // h))
+    return -(-ntiles // CONS), 2, _mxu_smem_bytes(k, 2)
 
 
 def _pair_safe(k: int) -> bool:
@@ -270,69 +308,178 @@ def _pair_safe(k: int) -> bool:
     return 129 * NPLANES * k * 127 * 127 < 2 ** 32
 
 
-def _stream_plan(k: int, mt: int):
-    """(threads, lanes per block, dynamic shared bytes) of the k-streamed
-    kernel with `mt` m-tiles at contraction k: the digit planes of one
-    chunk (at most 1184 rows of tl + 8 bytes) and a staging area of
-    diagonals x 40 ints per warp. It fits at every k."""
-    threads, ndiag = _STREAM[mt]
-    tl = 64
-    smem = (min(_kcols(k), _KC * NPLANES) * (tl + 8)
-            + threads // 32 * ndiag * _D_STRIDE * 4)
-    if smem > _SMEM_MAX:
-        raise ValueError(f"k={k}: {smem} bytes of shared memory")
-    return threads, tl, smem
+def _mxu_tile_rows(h: int):
+    """(column within the tile, diagonal) of each of a band tile's 80 rows
+    for h threads per column: row r is held by thread tg = (r % 8) // 2 of
+    a quad, as its diagonal slot 2 (r // 8) + r % 2 of part tg % h."""
+    r = torch.arange(TN)
+    tg = (r % 8) // 2
+    return tg // h, HALF * (tg % h) + 2 * (r // 8) + r % 2
 
 
-def _band_fragments(m, mt: int):
-    """Band digits int8 [n, 16 mt, kcols] (rows = output diagonals, zero
-    past the real ones; columns = digit rows q = kk*37 + d, zero past
-    k*37) -> the kernels' band int32 [n, ksteps, mt, 32, 4]: for column col,
-    k-step ks, m-tile mt and thread l (g = l >> 2, tg = l & 3), register j
-    holds the four int8 digits (lowest byte first) of row 16mt + g + 8(j &
-    1), columns 32ks + 16(j >> 1) + 4tg + 0..3 — the PTX fragment layout of
-    a row-major 16x32 int8 A tile."""
-    n, _, kcols = m.shape
-    m = m.reshape(n, mt, 2, 8, kcols // 32, 2, 4, 4)   # mt h g ks half tg e
-    m = m.permute(0, 4, 1, 3, 6, 5, 2, 7).contiguous()
-    return m.view(torch.int32).reshape(n, kcols // 32, mt, 32, 4)
+def _mxu_digit_rows(k: int):
+    """int64 [k * 37]: the digit row of (operand kk, digit d), kk-major, in
+    the chunked contraction order (chunks of 16 operands, each padded to
+    whole k-steps)."""
+    kk = torch.arange(k)[:, None]
+    d = torch.arange(NPLANES)[None, :]
+    return ((kk // MXU_KC) * CHUNK_STEPS * 32 + (kk % MXU_KC) * NPLANES
+            + d).reshape(-1)
 
 
-def _fused2_band(wd):
-    """Folded digits wd int8 [k, n, d, s] -> row 13's band (3 m-tiles:
-    diagonals s = 0..36, zero to 47)."""
-    k, n = wd.shape[0], wd.shape[1]
-    kq = k * NPLANES
-    m = wd.permute(1, 3, 0, 2).reshape(n, NPLANES, kq)          # [n, s, q]
-    m = torch.nn.functional.pad(m, (0, _kcols(k) - kq, 0, 48 - NPLANES))
-    return _band_fragments(m, 3)
+def _mxu_tiles(m, h: int):
+    """Band digits int8 [n, nd, k, 37] (column, diagonal, operand, digit)
+    -> the kernels' band tiles int8 [ceil(n / (4 / h)), ksteps, 2560]: per
+    (tile, k-step) one wgmma B operand of 80 rows x 32 digit rows in the
+    K-major canonical layout [16-byte half][row // 8][row % 8][16]
+    (rows by _mxu_tile_rows, digit rows by _mxu_digit_rows; the rest
+    zero)."""
+    n, nd, k, _ = m.shape
+    cpt = 4 // h
+    ntiles = -(-n // cpt)
+    ks = _mxu_ksteps(k)
+    bq = torch.zeros((ntiles * cpt, h * HALF, ks * 32), dtype=torch.int8,
+                     device=m.device)
+    rows = _mxu_digit_rows(k).to(m.device)
+    bq[:n, :nd, rows] = m.reshape(n, nd, k * NPLANES)
+    # column c, part, slot (i, e) -> row 8i + 2 (c h + part) + e
+    t = bq.reshape(ntiles, cpt * h, HALF // 2, 2, ks, 2, 16)
+    t = t.permute(0, 4, 5, 2, 1, 3, 6)        # tile, ks, half, i, tg, e, byte
+    return t.contiguous().reshape(ntiles, ks, STEP_BYTES)
 
 
-def _fused_band(v8):
-    """Scaled planes v8 int8 [k, n, 37] -> row 14's band (5 m-tiles):
-    diagonal l at digit row kk*37 + d holds digit l - d of v[kk] (0
-    outside 0..36), diagonals 73..79 zero."""
+def _fused2_tiles(wd):
+    """Folded digits wd int8 [k, n, d, s] -> row 13's band tiles: column
+    col, diagonal s, digit row (kk, d) holds digit s of w_dk."""
+    return _mxu_tiles(wd.permute(1, 3, 0, 2), 2)
+
+
+def _fused_tiles(v8):
+    """Scaled planes v8 int8 [k, n, 37] -> row 14's band tiles: diagonal l
+    at digit row (kk, d) holds digit l - d of v[kk] (0 outside 0..36)."""
     k, n = v8.shape[0], v8.shape[1]
-    band = torch.zeros((n, 80, k, NPLANES), dtype=torch.int8,
+    band = torch.zeros((n, NOUT, k, NPLANES), dtype=torch.int8,
                        device=v8.device)
     vt = v8.permute(1, 2, 0)                                     # [n, s, k]
     for d in range(NPLANES):
         band[:, d:d + NPLANES, :, d] = vt
-    band = band.reshape(n, 80, k * NPLANES)
-    band = torch.nn.functional.pad(band, (0, _kcols(k) - k * NPLANES))
-    return _band_fragments(band, 5)
+    return _mxu_tiles(band, 4)
 
 
-def _run_streamed(entry, a, band, n, *args):
-    """Launch a k-streamed kernel: a int32 [L, B, k] (contiguous), band
-    from _band_fragments -> int32 [L, B, n]."""
+def _mxu_chunk_image(a, c: int) -> np.ndarray:
+    """Plain twin of band_gemm.cuh's mxu_build_block: a int32 [L, B, k]
+    (CPU) -> uint8 [blocks, 19 * 32 * 128], the shared-memory image of
+    plane chunk c of every 128-lane block, word for word (item = lane and 4
+    operands, 148 digit bytes as 37 words, none past the chunk's k-steps;
+    bytes no item writes stay 0)."""
     _, B, k = a.shape
-    mt = band.shape[2]
-    _, tl, smem = _stream_plan(k, mt)
+    nblk = -(-B // TM)
+    x = a.to(torch.int64).numpy().astype(np.uint64)           # [L, B, k]
+    x = np.pad(x, ((0, 0), (0, nblk * TM - B), (0, 0)))
+    oct_n = TM // 8
+    lane = np.arange(nblk * TM)
+    blk, oct_, l8 = lane // TM, (lane % TM) // 8, lane % 8
+    img = np.zeros((nblk, CHUNK_STEPS * 32 * TM), np.uint8)
+    for jq in range(4):
+        kk0 = MXU_KC * c + 4 * jq
+        if kk0 >= k:
+            continue
+        w = np.zeros((4, nblk * TM, 9), np.uint64)          # 32-bit words
+        for e in range(4):
+            if kk0 + e < k:
+                li = x[:, :, kk0 + e]
+                w[e, :, :8] = (li[0::2] | (li[1::2] << np.uint64(16))).T
+        for wd in range(NPLANES):
+            word = np.zeros(nblk * TM, np.uint64)
+            for e4 in range(4):
+                t = 4 * wd + e4
+                e, d = divmod(t, NPLANES)
+                j, r = divmod(7 * d, 32)
+                v = (w[e, :, j] | (w[e, :, j + 1] << np.uint64(32))) >> \
+                    np.uint64(r)
+                word |= (v & np.uint64(0x7F)) << np.uint64(8 * e4)
+            q = 148 * jq + 4 * wd
+            if q >= 32 * _chunk_steps(k, c):      # past the chunk's k-steps
+                continue
+            at = ((q >> 4) * oct_n + oct_) * 128 + l8 * 16 + (q & 15)
+            for bb in range(4):
+                img[blk, at + bb] = (word >> np.uint64(8 * bb)) & \
+                    np.uint64(0xFF)
+    return img
+
+
+def _mxu_epilogue(diag, h: int, epi):
+    """Plain twin of mxu_gemm_body's epilogue: the exact diagonals int64
+    [B, n, nd] of every (lane, column) -> int32 [L, B, n]. Every consumer
+    thread's accumulators are laid out as wgmma leaves them for the band
+    rows of _mxu_tile_rows; each thread gathers, as the kernel's xor
+    shuffles do, the diagonals of the lane slots it owns from the h threads
+    of its column, and `epi` ([nd, M] -> [L, M]: _fold_reduce or
+    _redc_diagonals) reduces them."""
+    B, n, nd = diag.shape
+    cpt = 4 // h
+    nblk, ntiles = -(-B // TM), -(-n // cpt)
+    dp = torch.zeros((nblk * TM, ntiles * cpt, h * HALF), dtype=torch.int64)
+    dp[:B, :n, :nd] = diag
+    col, dg = _mxu_tile_rows(h)
+    # d[blk, lane, tile, r]: the accumulator of band row r of the tile
+    d = dp.reshape(nblk, TM, ntiles, cpt, h * HALF)[:, :, :, col, dg]
+    j = torch.arange(HALF)
+    blk, tile = torch.arange(nblk), torch.arange(ntiles)
+    ds_all, lanes, cols = [], [], []
+    for wl in range(4):
+        for g in range(8):
+            for tg in range(4):
+                part = tg % h
+                for u in range(4 // h):              # the slots it owns
+                    own = u * h + part               # slot 2 mb + hh
+                    lane = 64 * (own // 2) + 16 * wl + g + 8 * (own % 2)
+                    # round x: the diagonals 20 (part ^ x) + j that thread
+                    # tg ^ x holds of slot `own` (x = 0: its own)
+                    got = [d[:, lane, :, 8 * (j // 2) + 2 * (tg ^ x) + j % 2]
+                           for x in range(h)]
+                    ds = torch.cat([got[x ^ part] for x in range(h)], -1)
+                    ds_all.append(ds[..., :nd].reshape(-1, nd))
+                    lanes.append((blk * TM + lane)[:, None].expand(
+                        nblk, ntiles).reshape(-1))
+                    cols.append((tile * cpt + tg // h)[None, :].expand(
+                        nblk, ntiles).reshape(-1))
+    red = epi(torch.cat(ds_all).t().contiguous())           # [L, M]
+    out = torch.zeros((L, nblk * TM, ntiles * cpt), dtype=torch.int32)
+    out[:, torch.cat(lanes), torch.cat(cols)] = red
+    return out[:, :B, :n]
+
+
+def _mxu_out_plan(k: int, n: int, h: int) -> bool:
+    """Whether the results go out by way of a scratch tensor
+    (mxu_gemm_body's last phase): with one tile group, the consumers leave
+    a block's 16-bit limbs there, [block][L][column][lane], and once every
+    tile is done write them to out by whole lane rows through the planes
+    and rings, some limbs at a time: at least one limb of 128 lanes x
+    (columns | 1) words must fit there. Else (tile groups, or no room) the
+    consumers store to out."""
+    tgroups, _, smem = _mxu_plan(k, n, h)
+    free = smem - 16 * (CONS * _SLOTS + _NBAR)          # all but mbarriers
+    ncolsp = -(-n // (4 // h)) * (4 // h)
+    return tgroups == 1 and TM * (ncolsp | 1) * 4 <= free
+
+
+def _run_mxu(entry, a, tiles, n, h, *args):
+    """Launch a kernel on mxu_gemm_body: a int32 [L, B, k] (contiguous),
+    its band tiles -> int32 [L, B, n], the results by way of a scratch
+    tensor [block][L][column][lane] of 16-bit limbs where _mxu_out_plan
+    says so."""
+    _, B, k = a.shape
+    tgroups, nbuf, _ = _mxu_plan(k, n, h)
     out = torch.empty((L, B, n), dtype=torch.int32, device=a.device)
-    rc = entry(a.data_ptr(), band.data_ptr(), out.data_ptr(), B, k, n,
-               *args, tl, band.shape[1], smem, int(_pair_safe(k)),
-               _launch_stream(a))
+    tmp = None
+    if _mxu_out_plan(k, n, h):
+        ncolsp = -(-n // (4 // h)) * (4 // h)
+        tmp = torch.empty((-(-B // TM), L, ncolsp, TM), dtype=torch.int16,
+                          device=a.device)
+    rc = entry(a.data_ptr(), tiles.data_ptr(), out.data_ptr(),
+               0 if tmp is None else tmp.data_ptr(), B, k, n,
+               *args, tgroups, nbuf, int(_pair_safe(k)), _launch_stream(a))
     if rc != 0:
         raise RuntimeError(f"MXU kernel launch failed: CUDA error {rc}")
     return out
@@ -343,8 +490,8 @@ def _fused2_cuda(a, wd, rounds: int):
     band digits [k, n, 37, 37] -> int32 [L, B, n]."""
     global launches_fused2
     from .._build import lib
-    out = _run_streamed(lib().hb_mxu_fused2, a, _fused2_band(wd),
-                         wd.shape[1], rounds)
+    out = _run_mxu(lib().hb_mxu_fused2, a, _fused2_tiles(wd), wd.shape[1], 2,
+                   rounds)
     launches_fused2 += 1
     return out
 
@@ -381,8 +528,8 @@ def _fused_cuda(a, v_limbs):
     n] Montgomery limbs -> int32 [L, B, n]."""
     global launches_fused
     from .._build import lib
-    out = _run_streamed(lib().hb_mxu_fused, a,
-                        _fused_band(_scaled_planes(v_limbs)), v_limbs.shape[2])
+    tiles = _fused_tiles(_scaled_planes(v_limbs))
+    out = _run_mxu(lib().hb_mxu_fused, a, tiles, v_limbs.shape[2], 4)
     launches_fused += 1
     return out
 

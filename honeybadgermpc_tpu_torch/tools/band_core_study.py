@@ -1,7 +1,8 @@
-"""Where the wgmma band core's time goes (rows 1, 3, 4, 5a, 5b, 6, 16 and
-17 of PERF.md).
+"""Where the wgmma band core's time goes (rows 1, 3, 4, 5a, 5b, 6, 13, 14,
+16 and 17 of PERF.md).
 
     python3 honeybadgermpc_tpu_torch/tools/band_core_study.py [--parent DIR]
+        [--mxu-only]
 
 Needs one CUDA card and nvcc. Builds knock-out variants of
 ``csrc/band_gemm.cuh`` (patched copies under the package's build
@@ -47,6 +48,19 @@ archive``) the script also times that tree's band_matmul, the direct open,
 K1, K2, the check, both extractions and the deal through their wrappers,
 before and after the variants, in separate processes on the same card. Prints one JSON
 line per measurement; the card's name and power limit come first.
+
+Rows 13 and 14 (the MXU field matmuls, time_mxu) at B=49,152, k=22, n=43
+and 64, B=16,896, k=438, n=4 (row 13) and B=16,896, k=512, n=4 (row 14):
+the device time of the kernel alone (the profiler's trace, by the
+epilogue type in its name) through the wrappers, on knock-out variants
+of the core the checkout runs them on -- band_gemm.cuh's mxu_gemm_body,
+or mxu_core.cuh's mma.sync stream kernel in a checkout from before --
+final, no_epilogue (no exchange, fold or stores), no_dot, no_planes (no
+limb loads or digit split), no_store, stream_only, no_transpose (the
+results stay in the scratch tensor: no last phase) and, for row 13 with
+resident planes, cluster2 (two-block clusters multicasting the band). With
+--parent the other checkout's variants are timed the same way in a
+process of its own; --mxu-only times rows 13 and 14 alone.
 """
 
 import argparse
@@ -655,18 +669,309 @@ def time_tree(tag):
         ms=ev_ms(lambda: fr.randousha_extract(cols, band, n_out, n_outp)))
 
 
+# -- rows 13 and 14: the MXU field matmuls ------------------------------------
+
+# (row, B, k, n): row 13's two robust-open shapes and its k-streamed one,
+# row 14's ntl shape
+MXU_SHAPES = ((13, 49152, 22, 43), (13, 49152, 22, 64), (13, 16896, 438, 4),
+              (14, 16896, 512, 4))
+MXU_VARIANTS = ("final", "no_epilogue", "no_dot", "no_planes", "no_store",
+                "stream_only")
+# the profiler's kernel names hold the epilogue type of each row
+MXU_KERNEL_NAME = {13: "Fold37", 14: "Redc73"}
+
+
+def _mxu_old_patches():
+    """Knock-outs of mxu_core.cuh's mxu_stream_kernel (the mma.sync stream
+    kernel rows 13 and 14 ran on before the wgmma core took them)."""
+    dot = ("mma_s8(acc[mt][nt], af[mt], b0w, b1w);",
+           "{ acc[mt][nt][0] += b0w ^ af[mt].x; "
+           "acc[mt][nt][1] += b1w ^ af[mt].w; }")
+    planes = [("    build(0);\n", ""), ("        build(c);\n", "")]
+    store = ("        out[j * Bn + static_cast<size_t>(b) * n + col] = "
+             "limbs[j];",
+             "        if ((limbs[0] ^ limbs[15]) == 0x9e3779b9u) "
+             "out[j * Bn + static_cast<size_t>(b) * n + col] = limbs[j];")
+    noepi = ("CUT", "    // transpose: thread laneid takes",
+             "  }\n}\n\n// Launch one instance",
+             "    if (acc[0][0][0] == 0x7fffffff && acc[MT - 1][3][3] == 3) "
+             "__trap();\n")
+    return {"final": [], "no_epilogue": [noepi], "no_dot": [dot],
+            "no_planes": planes, "no_store": [store],
+            "stream_only": [noepi, dot] + planes}
+
+
+def _mxu_new_patches():
+    """Knock-outs of band_gemm.cuh's mxu_gemm_body (rows 13 and 14 on the
+    wgmma core)."""
+    dot = ("mxu_wgmma(acc[mb], da, db, ks > 0);", "(void)da; (void)db;")
+    planes = [("    for (int oct = bw; kk0 < k && oct < OCT; oct += 4) {",
+               "    for (int oct = bw; false && oct < OCT; oct += 4) {")]
+    magic = "if ((limbs[0] ^ limbs[15]) == 0x9e3779b9u) "
+    no_transpose = ("  // (the transpose)\n", "  return;\n")
+    store = [("          dst[static_cast<size_t>(j) * ncolsp * TM] =\n"
+              "              static_cast<uint16_t>(limbs[j]);",
+              "          " + magic +
+              "dst[static_cast<size_t>(j) * ncolsp * TM] =\n"
+              "              static_cast<uint16_t>(limbs[j]);"),
+             ("          dst[static_cast<size_t>(j) * Bn] = limbs[j];",
+              "          " + magic + "dst[static_cast<size_t>(j) * Bn] = "
+              "limbs[j];"),
+             no_transpose]
+    noepi = ("CUT", "    // the epilogue: exchange, fold, store",
+             "    // end of the epilogue",
+             "      if (acc[0][0] == 0x7fffffff && acc[MB - 1][39] == 3) "
+             "__trap();\n")
+    return {"final": [], "no_epilogue": [noepi, no_transpose],
+            "no_dot": [dot], "no_planes": planes, "no_store": store,
+            "stream_only": [noepi, no_transpose, dot] + planes,
+            "no_transpose": [no_transpose],
+            "cluster2": _mxu_cluster2()}
+
+
+def _mxu_cluster2():
+    """Row 13 with resident planes in thread-block clusters of two
+    neighbouring 128-lane blocks (the same tile walk) that share their band
+    stream, as _cluster2 does for the core: each producer copies half of
+    every ring slot and multicasts it to both blocks, so each block reads
+    half the band from L2; a slot is refilled when the consumers of both
+    blocks are done with it. Only for the resident launch (one tile group);
+    the row-14 kernel in this build is not launched."""
+    return [
+        ("// Shared-memory matrix descriptor, no swizzle",
+         _CLUSTER_HELPERS + "// Shared-memory matrix descriptor, no swizzle"),
+        ("      mbar_init(empty_s + 8 * s, 4);\n    }\n    for (int b = 0;",
+         "      mbar_init(empty_s + 8 * s, 8);\n    }\n    for (int b = 0;"),
+        ("  __syncthreads();\n\n  if (warp >= MXU_CONS * 4 + 4) {",
+         "  __syncthreads();\n"
+         "  uint32_t rank;\n"
+         "  asm volatile(\"mov.u32 %0, %%cluster_ctarank;\\n\" : \"=r\"(rank));\n"
+         "  asm volatile(\"barrier.cluster.arrive.release.aligned;\\n\"\n"
+         "               \"barrier.cluster.wait.acquire.aligned;\\n\" ::: "
+         "\"memory\");\n\n  if (warp >= MXU_CONS * 4 + 4) {"),
+        ("      bulk_load(ring_s + slot * MXU_SLOT_BYTES,\n"
+         "                band + (static_cast<size_t>(ct) * ksteps + kk0) *\n"
+         "                           MXU_STEP_BYTES,\n"
+         "                steps * MXU_STEP_BYTES, full_s + 8 * slot);\n",
+         "      const uint32_t half = steps * MXU_STEP_BYTES / 2;\n"
+         "      bulk_load_multicast(ring_s + slot * MXU_SLOT_BYTES + rank * half,"
+         "\n                          band + (static_cast<size_t>(ct) * ksteps"
+         " + kk0) * MXU_STEP_BYTES + rank * half,\n"
+         "                          half, full_s + 8 * slot);\n"),
+        ("  const size_t Bn = static_cast<size_t>(B) * n;\n  int acc[MB][40];",
+         "  const size_t Bn = static_cast<size_t>(B) * n;\n"
+         "  const int nload_c = ((t1 - t0 - wgi + MXU_CONS - 1) / MXU_CONS) *\n"
+         "                      ((ksteps + MXU_KS - 1) / MXU_KS);\n"
+         "  auto release = [&](int ld) {\n"
+         "    const uint32_t bar = empty_s + 8 * (wgi * MXU_SLOTS + ld % "
+         "MXU_SLOTS);\n"
+         "    mbar_arrive(bar);\n"
+         "    if (ld + MXU_SLOTS < nload_c) mbar_arrive_peer(bar, rank ^ 1u);\n"
+         "  };\n  int acc[MB][40];"),
+        ("          mbar_arrive(empty_s + 8 * (wgi * MXU_SLOTS + (sr - 1) % "
+         "MXU_SLOTS));", "          release(sr - 1);"),
+        ("      mbar_arrive(empty_s + 8 * (wgi * MXU_SLOTS + (sr - 1) % "
+         "MXU_SLOTS));", "      release(sr - 1);"),
+    ]
+
+
+_MXU_CLUSTER_LAUNCH = (
+    "  const unsigned grid = static_cast<unsigned>((B + 127) / 128 * tgroups);\n"
+    "  kern<<<grid, gemm::MXU_THREADS, smem, static_cast<cudaStream_t>(stream)"
+    ">>>(\n"
+    "      static_cast<const uint32_t*>(a),\n"
+    "      static_cast<const unsigned char*>(band), static_cast<uint32_t*>(out),"
+    "\n      static_cast<uint16_t*>(tmp), B, k, n, tgroups, nbuf);\n",
+    "  const long long blocks = (B + 127) / 128 * tgroups;\n"
+    "  cudaLaunchConfig_t cfg = {};\n"
+    "  cfg.gridDim = dim3(static_cast<unsigned>((blocks + 1) / 2 * 2));\n"
+    "  cfg.blockDim = dim3(gemm::MXU_THREADS);\n"
+    "  cfg.dynamicSmemBytes = smem;\n"
+    "  cfg.stream = static_cast<cudaStream_t>(stream);\n"
+    "  cudaLaunchAttribute attr[1];\n"
+    "  attr[0].id = cudaLaunchAttributeClusterDimension;\n"
+    "  attr[0].val.clusterDim.x = 2;\n"
+    "  attr[0].val.clusterDim.y = 1;\n"
+    "  attr[0].val.clusterDim.z = 1;\n"
+    "  cfg.attrs = attr;\n"
+    "  cfg.numAttrs = 1;\n"
+    "  err = cudaLaunchKernelEx(&cfg, kern, static_cast<const uint32_t*>(a),\n"
+    "      static_cast<const unsigned char*>(band), static_cast<uint32_t*>(out),"
+    "\n      static_cast<uint16_t*>(tmp), B, k, n, tgroups, nbuf);\n"
+    "  if (err != cudaSuccess) return static_cast<int>(err);\n")
+
+
+def _patch(src, patches, what):
+    for p in patches:
+        if p[0] == "CUT":
+            _, start, end, repl = p
+            if start not in src or end not in src:
+                raise SystemExit(f"{what}: patch anchor missing")
+            a, b = src.index(start), src.index(end)
+            src = src[:a] + repl + src[b:]
+        else:
+            if p[0] not in src:
+                raise SystemExit(f"{what}: patch anchor missing: {p[0]!r}")
+            src = src.replace(p[0], p[1])
+    return src
+
+
+def build_mxu_variants(csrc, work):
+    """Knock-out variants of the core that rows 13 and 14 run on in the
+    checkout whose kernel sources are `csrc`: mxu_core.cuh's stream kernel
+    (before the wgmma core took them) or band_gemm.cuh's mxu_gemm_body.
+    -> ({variant: CDLL holding hb_mxu_fused2 and hb_mxu_fused}, core)."""
+    core_src = open(os.path.join(csrc, "mxu_core.cuh")).read()
+    old = "mxu_stream_kernel" in core_src
+    header = "mxu_core.cuh" if old else "band_gemm.cuh"
+    base = open(os.path.join(csrc, header)).read()
+    patches = _mxu_old_patches() if old else _mxu_new_patches()
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    procs = {}
+    for name, pset in patches.items():
+        d = os.path.join(work, name)
+        os.makedirs(d, exist_ok=True)
+        for fn in os.listdir(csrc):
+            if fn.endswith((".cuh", ".cu")):
+                shutil.copy(os.path.join(csrc, fn), d)
+        with open(os.path.join(d, header), "w") as f:
+            f.write(_patch(base, pset, f"mxu variant {name}"))
+        if name == "cluster2":
+            fn = os.path.join(d, "mxu_fused2.cu")
+            src = _patch(open(fn).read(), [_MXU_CLUSTER_LAUNCH],
+                         "mxu variant cluster2 (launch)")
+            with open(fn, "w") as f:
+                f.write(src)
+        so = os.path.join(d, "libmxu.so")
+        procs[name] = (so, subprocess.Popen(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+             "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", so,
+             os.path.join(d, "mxu_fused2.cu"), os.path.join(d, "mxu_fused.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"mxu variant {name} does not build:\n{out}")
+        libs[name] = ctypes.CDLL(so)
+    return libs, "mma.sync stream kernel (mxu_core.cuh)" if old else \
+        "wgmma core (band_gemm.cuh)"
+
+
+class _LibProxy:
+    """The tree's kernel library with hb_mxu_fused2 and hb_mxu_fused taken
+    from a variant build (same argument types)."""
+
+    def __init__(self, real, var):
+        self._real = real
+        for fn in ("hb_mxu_fused2", "hb_mxu_fused"):
+            f = getattr(var, fn)
+            f.argtypes = getattr(real, fn).argtypes
+            f.restype = getattr(real, fn).restype
+            setattr(self, fn, f)
+
+    def __getattr__(self, name):
+        return getattr(self._real, name)
+
+
+def kernel_ms(fn, reps, name):
+    """Mean device time of the kernel whose profiler name holds `name`,
+    one launch per call of fn(); CUDA events when the trace holds fewer
+    than half the launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for ev in prof.key_averages():
+        if name in ev.key:
+            total += getattr(ev, "device_time_total",
+                             getattr(ev, "cuda_time_total", 0.0))
+            count += ev.count
+    if total <= 0.0 or 2 * count < reps:
+        return ev_ms(fn, reps), "cuda_events"
+    return total / count / 1e3, "profiler"
+
+
+def mxu_inputs(row, b, k, n):
+    """Montgomery limbs a [L, B, k], v [L, k, n] (and row 13's band digits)
+    -> (launch thunk through the wrapper, plain thunk)."""
+    import torch
+    from honeybadgermpc_tpu_torch.ops import field_kernels as fk
+    from honeybadgermpc_tpu_torch.ops import mxu_matmul as mxu
+    dev = torch.device("cuda")
+    a = fk.rand_limbs((91, b + k), b * k, dev).reshape(16, b, k)
+    v = fk.rand_limbs((92, n + k), k * n, dev).reshape(16, k, n)
+    if row == 13:
+        r = mxu._rounds_for(k)
+        wd = mxu._folded_band_digits(v, r)
+        return (lambda: mxu._fused2_cuda(a, wd, r),
+                lambda: mxu._fused2_plain(a, wd, r))
+    return (lambda: mxu._fused_cuda(a, v), lambda: mxu._fused_plain(a, v))
+
+
+def time_mxu(tag, work, variants=True):
+    """Rows 13 and 14 of the tree this process imports at MXU_SHAPES:
+    through its wrappers (the kernel's own device time), and with
+    `variants` its core's knock-outs too. The final variant is held
+    against the plain version once per shape."""
+    import torch
+    import honeybadgermpc_tpu_torch as pkg
+    from honeybadgermpc_tpu_torch import _build
+    real = _build.lib()
+    csrc = os.path.join(os.path.dirname(pkg.__file__), "csrc")
+    libs, core = (build_mxu_variants(csrc, work) if variants
+                  else ({"final": None}, ""))
+    for row, b, k, n in MXU_SHAPES:
+        run, plain = mxu_inputs(row, b, k, n)
+        for name, var in libs.items():
+            if name == "cluster2" and (row != 13 or k > 38):
+                continue                   # resident row 13 only
+            _build._lib = real if var is None else _LibProxy(real, var)
+            if name == "final" and var is not None:
+                got = run()
+                ok = bool(torch.equal(got, plain()))
+                if not ok:
+                    raise SystemExit(f"row {row} final != plain at "
+                                     f"{(b, k, n)} ({tag})")
+            ms, by = kernel_ms(run, 10, MXU_KERNEL_NAME[row])
+            rec = dict(kernel=f"row{row}", tree=tag, B=b, k=k, n=n, ms=ms,
+                       timed_by=by)
+            if var is not None:
+                rec.update(variant=name, core=core)
+            say(**rec)
+        _build._lib = real
+        torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", help="another checkout of the port to time "
                     "beside this one")
     ap.add_argument("--tree-only", metavar="TAG",
                     help="time this process's tree through its wrappers")
+    ap.add_argument("--mxu-only", action="store_true",
+                    help="rows 13 and 14 alone: this tree's knock-outs and, "
+                    "with --parent, that tree's")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("band_core_study: no CUDA device")
+    work = os.path.join(ROOT, "honeybadgermpc_tpu_torch", "build",
+                        "band_core_study")
     if args.tree_only:
-        time_tree(args.tree_only)
+        if args.mxu_only:
+            time_mxu(args.tree_only, os.path.join(
+                os.getcwd(), "honeybadgermpc_tpu_torch", "build",
+                "mxu_study_" + args.tree_only))
+        else:
+            time_tree(args.tree_only)
+            time_mxu(args.tree_only, None, variants=False)
         return
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -675,9 +980,10 @@ def main():
 
     def other(tag):
         env = dict(os.environ, PYTHONPATH=os.path.abspath(args.parent))
+        extra = ", '--mxu-only'" if args.mxu_only else ""
         subprocess.run([sys.executable, "-c",
                         "import runpy, sys; sys.argv = ['study', "
-                        f"'--tree-only', '{tag}']; "
+                        f"'--tree-only', '{tag}'{extra}]; "
                         f"runpy.run_path({os.path.abspath(__file__)!r}, "
                         "run_name='__main__')"],
                        env=env, check=True, cwd=os.path.abspath(args.parent))
@@ -685,10 +991,12 @@ def main():
     if args.parent:
         other("parent")
     sys.path.insert(0, ROOT)
-    time_tree("this")
-    work = os.path.join(ROOT, "honeybadgermpc_tpu_torch", "build",
-                        "band_core_study")
-    time_variants(work)
+    if args.mxu_only:
+        time_mxu("this", os.path.join(work, "mxu"))
+    else:
+        time_tree("this")
+        time_mxu("this", os.path.join(work, "mxu"))
+        time_variants(work)
     if args.parent:
         other("parent")
 

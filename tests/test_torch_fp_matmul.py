@@ -183,10 +183,12 @@ def test_fp_matmul_takes_the_routes_on_arrays():
 
 
 def test_streamed_kernels_have_a_plan_for_every_routed_contraction():
-    """Rows 13 and 14 stream k through shared memory in chunks of 32
-    operands: every k that the reference's predicates send to them (all k
-    with fused2_fits, and the fused_fits windows beyond it) has a launch
-    plan inside a Hopper block's 227 KB."""
+    """Rows 13 and 14 run on the wgmma core with their digit planes in
+    shared memory, resident up to k = 38 and streamed through two chunk
+    buffers of 16 operands above: every k that the reference's predicates
+    send to them (all k with fused2_fits, and the fused_fits windows
+    beyond it) has a launch plan inside a Hopper block's 227 KB, with one
+    tile per consumer warpgroup where the planes stream."""
     for n in (4, 8, 16, 22, 32, 43, 64):
         ks2 = [k for k in range(1, 3600) if mxu.fused2_fits(k, n)]
         ks1 = [k for k in range(1, 3600)
@@ -194,11 +196,15 @@ def test_streamed_kernels_have_a_plan_for_every_routed_contraction():
         assert ks2 == list(range(1, max(ks2) + 1))
         assert max(ks2) == {4: 438, 8: 312, 16: 195, 22: 151, 32: 108,
                             43: 80, 64: 52}[n]
-        for k in ks2:
-            threads, tl, smem = mxu._stream_plan(k, 3)
-            assert (threads, tl) == (512, 64) and smem <= mxu._SMEM_MAX
-        for k in ks1:
-            assert mxu._stream_plan(k, 5)[2] <= mxu._SMEM_MAX
+        for h, ks in ((2, ks2), (4, ks1)):
+            tiles = -(-n // (4 // h))
+            for k in ks:
+                tgroups, nbuf, smem = mxu._mxu_plan(k, n, h)
+                assert smem <= mxu.SMEM_MAX
+                if k <= 38:
+                    assert (tgroups, nbuf) == (1, -(-k // mxu.MXU_KC))
+                else:
+                    assert (tgroups, nbuf) == (-(-tiles // mxu.CONS), 2)
         assert (min(ks1, default=None), max(ks1, default=None)) == {
             4: (439, 858), 8: (313, 422), 16: (196, 204)}.get(n, (None, None))
 
