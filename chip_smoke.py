@@ -36,14 +36,16 @@ n=64, t=21:
 The first run builds the kernels from ``honeybadgermpc_tpu_torch/csrc``
 into ``honeybadgermpc_tpu_torch/build``.
 
-Phases, each printing one JSON line; any failure exits non-zero (18 and
-19 run right after 10):
+Phases, each printing one JSON line; any failure exits non-zero (13 runs
+right after the offline kernels of phase 8, 18 and 19 right after 10):
   1 device    a CUDA card must be present; prints its name and power limit
   2 build     compile and load the nineteen kernels; ptxas registers
               and spills of the kernels on the wgmma core
   3 kernels   each kernel against its plain PyTorch version on the card,
               bit for bit, at small, unaligned and main-path shapes, with
-              times and the computed bound; row 3 (band_matmul, on the wgmma
+              times and the computed bound; the sampler (row 2) at numel
+              = 1, 77, 255, 257, 5000, 131,071, one pass of its resident
+              grid and either side of it, 16,896 and 354,816; row 3 (band_matmul, on the wgmma
               core) at B in {1, 63, 64, 65, 16896, 262144}, k in {1, 3, 22,
               43, 64}, m in {1, 5, 64, 128} with a Python-int sample each,
               timed at the open's shape and the eager programs' three; the
@@ -86,6 +88,12 @@ Phases, each printing one JSON line; any failure exits non-zero (18 and
               against their plain versions on the card, bit for bit, at the
               programs' shapes (k = 22 and 43), an unaligned chunk count and
               a small shape, honest and faulted, a Python-int sample each;
+              K3 (on the wgmma core, its column tiles split into groups)
+              also on dealt polynomials at the programs' shapes, C = 1, 65
+              and 7819, n = 8 and 7, honest (the secrets are the dealt
+              coefficients) and with four fault cases (two lanes of a warp
+              in the last compare column, the first at the last lane, an
+              interpolating operand, a lying party): the one count equal;
               K1 also at C = 1, 7819 and 7820 (k = 22 and 43), the edges of
               its lane tiles; K2 (on the wgmma core) also at C = 1, 65 (a
               destination boundary inside a 64-lane tile) and 7819 (a
@@ -185,7 +193,7 @@ from honeybadgermpc_tpu_torch.ops import fused_randousha as fr  # noqa: E402
 from honeybadgermpc_tpu_torch.ops import montgomery as mont  # noqa: E402
 from honeybadgermpc_tpu_torch.ops import mxu_matmul as mxu  # noqa: E402
 from honeybadgermpc_tpu_torch.ops.band_gemm import (  # noqa: E402
-    SMEM_MAX, _gemm_band_index, smem_bytes)
+    SMEM_MAX, _gemm_band_index, _gemm_split, smem_bytes)
 from honeybadgermpc_tpu_torch.ops.fparray import (  # noqa: E402
     FpArray, dev_const)
 from honeybadgermpc_tpu_torch.ops.fpmatmul import (  # noqa: E402
@@ -212,7 +220,7 @@ HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 INT32_OPS_PER_S = 67e12 / 2     # 128 lanes x 1 instruction
 # Least 32-bit integer instructions per sampled element, for the function
-# and not for the limb width csrc/rand_limbs.cu chose: on 32-bit words with
+# (csrc/rand_limbs.cu works on the same 32-bit words): with
 # multiply-add-with-carry, counting what the hardware can fuse (three-input
 # adds and logic) as one. 6 Threefry calls x (20 rounds x (add, rotate,
 # xor) + 2 + 5 x 2 key adds) give the 12 words; REDC by 2^-144 is four
@@ -247,6 +255,7 @@ NCHECKP = -(-2 * T // 8) * 8      # 48 columns of the padded check tensor
 MUL_ADD_OPS_PER_ELEMENT = 2 * (8 * 8 * 2) + 8 + 16 + 16 + 8 + 16
 SUB_BCAST_OPS_PER_ELEMENT = 8 + 8 + 8
 OPEN_PATH_KERNELS = ("open_direct", "band_matmul", "rand_limbs")
+K3_KERNEL = "open_fused_k3_core_kernel"   # K3 on the wgmma core
 # the direct open's large-k route (fused_open_direct._direct_route): k = 86
 # at n = 128 is above the core's k <= 81
 LARGE_K = (128, 85)
@@ -562,7 +571,12 @@ def phase_kernels(dev):
     t0 = time.perf_counter()
     err = {"open_direct": 0, "band_matmul": 0, "rand_limbs": 0}
     shapes = []
-    for numel in (5000, 77, SEG, SEG * T):
+    # one element, one and two blocks' elements either side, a large odd
+    # count, one pass of the resident grid and either side of it, the
+    # open path's draws
+    wave = fk.rand_wave()
+    for numel in (1, 77, 255, 257, 5000, 131071, wave - 1, wave, wave + 1,
+                  SEG, SEG * T):
         err["rand_limbs"] = max(err["rand_limbs"], compare_rand(dev, numel))
         shapes.append(f"rand_limbs numel={numel}")
     band_in = {}
@@ -1633,6 +1647,63 @@ def compare_k2(dev, n, k, c, key):
     return worst
 
 
+def k3_faults(vals, n, k):
+    """K3's fault cases on consistent vals [PL, n, C]: name -> (faulted
+    vals, the count every destination is charged)."""
+    c = vals.shape[-1]
+    cases = {"honest": (vals, 0)}
+    x = vals.clone()                   # the last compare column, two lanes
+    x[3, n - 1, 0] ^= 0x10             # of one warp (one lane where C = 1)
+    x[0, n - 1, min(3, c - 1)] ^= 1
+    cases["two_lanes_last_column"] = (x, 1 if c == 1 else 2)
+    x = vals.clone()                   # the first compare column, last lane
+    x[7, k, c - 1] ^= 0x40000000
+    cases["first_column_last_lane"] = (x, 1)
+    x = vals.clone()                   # an interpolating operand: its lane
+    x[2, 0, c // 2] ^= 0x100           # mismatches at every compare column
+    cases["interpolating_operand"] = (x, n - k)
+    x = vals.clone()                   # one lying party at every lane
+    x[5, n - 1] ^= 0x2482
+    cases["lying_party"] = (x, c)
+    return cases
+
+
+def compare_k3(dev, n, k, c, key):
+    """K3 alone against its plain version, bit for bit, on the shares of c
+    random degree k-1 polynomials at the points 1..n and on each fault case
+    of k3_faults: secrets and the one count equal, the count as the case
+    fixes it; on honest shares the secrets are the dealt coefficients
+    (Python ints on a sample). -> (worst error, the launch plan)."""
+    pts = tuple(range(1, n + 1))
+    coeffs = pack_limbs(fk.rand_limbs(key, c * k, dev).reshape(L, c, k))
+    mat = _vandermonde_int_rows(pts, k)
+    vals = bm.band_matmul_packed(coeffs, mat).permute(0, 2, 1).contiguous()
+    worst = 0
+    for name, (x, want) in k3_faults(vals, n, k).items():
+        before = fo.launches_k3
+        sec, errs = fo.open_k3(x, pts, k)
+        sec_p, errs_p = fo._k3_plain(x, pts, k)
+        sync()
+        check(fo.launches_k3 == before + 1, "open_fused K3 did not launch")
+        check(torch.equal(sec, sec_p) and torch.equal(errs, errs_p),
+              f"open_fused K3 != plain at {(n, k, c)} {name}")
+        check(errs.tolist() == [want], f"open_fused K3 count "
+              f"{errs.tolist()} at {(n, k, c)} {name}, want {want}")
+        if name == "honest":
+            check(torch.equal(sec, coeffs.permute(0, 2, 1)),
+                  f"open_fused K3 != the dealt coefficients at {(n, k, c)}")
+            for cc in sorted({0, c - 1, c // 2}):
+                ys = packed_ints(vals[:, :, cc], list(range(n)))
+                co = packed_ints(sec[:, :, cc], list(range(k)))
+                check(all(ys[j] == sum(a * pow(j + 1, e, P)
+                                       for e, a in enumerate(co)) % P
+                          for j in (0, k - 1, n - 1)),
+                      f"open_fused K3 != Python ints at {(n, k, c)}")
+        worst = max(worst, max_abs_err(sec, sec_p), max_abs_err(errs, errs_p))
+    nsm = torch.cuda.get_device_properties(dev).multi_processor_count
+    return worst, _gemm_split(k, c, n, nsm)
+
+
 def compare_mul_add(dev, b):
     x = [pack_limbs(rand_field(dev, (71 + i, b), (b,))) for i in range(3)]
     got = fk.mul_add_packed(*x)
@@ -1673,7 +1744,8 @@ def phase_kernels_programs(dev):
                      lambda: fo._k3_plain(vals, pts, k)))
             for s, kern, plain in runs:
                 times[f"open_fused_k{s}{tag}"] = (
-                    kernel_ms(kern, 10, f"open_fused_k{s}_kernel"),
+                    kernel_ms(kern, 10, K3_KERNEL if s == 3 else
+                              f"open_fused_k{s}_kernel"),
                     timed_once(plain), open_fused_bound(s, N, k, c))
             del view, cols, vals, stage_in
     for n, k, c in ((N, K, 1), (N, K, C_T - 1), (N, 2 * T + 1, 1),
@@ -1690,6 +1762,16 @@ def phase_kernels_programs(dev):
                                    compare_k2(dev, n, k, c, (83, c)))
         shapes.append(f"open_fused K2 n={n} k={k} C={c} (+ faults in the "
                       f"first and last compare columns)")
+    # K3 on the wgmma core: the programs' shapes (2 and 4 column groups),
+    # ragged 64-lane tiles (C = 1, 65, 7819), small n (one group, an odd
+    # column count)
+    for n, k, c in ((N, K, C_T), (N, 2 * T + 1, C_2T), (N, K, 1),
+                    (N, K, 65), (N, K, C_T - 1), (N, 2 * T + 1, 65),
+                    (8, 3, 5), (7, 3, 130)):
+        e, plan = compare_k3(dev, n, k, c, (89, c))
+        err["open_fused_k3"] = max(err["open_fused_k3"], e)
+        shapes.append(f"open_fused K3 n={n} k={k} C={c} (lane tile, column "
+                      f"groups {plan}; honest, 4 fault cases)")
     worst = 0
     for b in (1, 777, N * N_OUT * KT):
         e, operands = compare_mul_add(dev, b)
@@ -2546,10 +2628,11 @@ def phase_per_column(dev, reps):
 
 
 def ptxas_core(log):
-    """Registers and spill bytes of the kernels on csrc/band_gemm.cuh, from
-    ptxas' report in the build log: {"<kernel> lanes=<64 MB>" (rows 13 and
-    14: "<kernel> rounds=<r> pair=<0|1>"): "<registers> registers,
-    <stores>/<loads> spill bytes"}."""
+    """Registers and spill bytes of the kernels on csrc/band_gemm.cuh and
+    of the sampler, from ptxas' report in the build log: {"<kernel>
+    lanes=<64 MB>" (rows 13 and 14: "<kernel> rounds=<r> pair=<0|1>"; the
+    sampler: "rand_limbs_kernel"): "<registers> registers, <stores>/<loads>
+    spill bytes"}."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '_ZN2hb(\d+)(\w+)'", ln)
@@ -2568,9 +2651,10 @@ def ptxas_core(log):
             name = f"{kern} lanes={64 * int(mb.group(1))}" if mb and kern in (
                 "band_matmul_kernel", "open_direct_kernel",
                 "open_fused_k1_kernel", "open_fused_k2_kernel",
-                "randousha_check_kernel", "randousha_extract_pc_kernel",
-                "randousha_deal_kernel", "randousha_extract_kernel") \
-                else None
+                K3_KERNEL, "randousha_check_kernel",
+                "randousha_extract_pc_kernel", "randousha_deal_kernel",
+                "randousha_extract_kernel") \
+                else (kern if kern == "rand_limbs_kernel" else None)
             continue
         if name is None:
             continue
@@ -2739,8 +2823,10 @@ def kernels_line(times, err, launches, launches_triples, launches_robust,
             row["streamed_shape"] = {"ms": ms3, "plain_ms": plain3,
                                      "bound_ms": bound3, "bound_by": by3,
                                      "shape": shape3}
+        if name == "rand_limbs":
+            row["elements_per_wave"] = fk.rand_wave()
         if name in ("band_matmul", "open_direct", "open_fused_k1",
-                    "open_fused_k2", "randousha_check",
+                    "open_fused_k2", "open_fused_k3", "randousha_check",
                     "randousha_extract_pc", "randousha_deal",
                     "randousha_extract", "mxu_fused2", "mxu_fused"):
             row["core"] = "honeybadgermpc_tpu_torch/csrc/band_gemm.cuh"
@@ -2798,6 +2884,12 @@ def main():
     err2, times2 = phase_kernels_offline(dev)
     err.update(err2)
     times.update(times2)
+    # phase 13 runs here: late in a long process the profiler's trace drops
+    # launches, and K1-K3 are timed from it
+    err4, times4 = phase_kernels_programs(dev)
+    err.update(err4)
+    times.update(times4)
+    torch.cuda.empty_cache()
     launches_triples, trip = phase_triples(dev, args.reps)
     say("triple_timing", card=card, **trip)
     torch.cuda.empty_cache()
@@ -2817,10 +2909,6 @@ def main():
     say("robust_timing", card=card, **robust)
     torch.cuda.empty_cache()
 
-    err4, times4 = phase_kernels_programs(dev)
-    err.update(err4)
-    times.update(times4)
-    torch.cuda.empty_cache()
     launches_programs, programs = phase_programs(dev, args.reps)
     say("program_timing", card=card, **programs)
     phase_program_fault(dev)

@@ -129,7 +129,9 @@ def _declare(lib):
     lib.hb_open_fused_k2.argtypes = [vp, vp, vp, vp, i32, i32, i64, i32,
                                      init, vp]
     lib.hb_open_fused_k3.argtypes = [vp, vp, vp, vp, i32, i32, i64, i32, i32,
-                                     init, i32, vp]
+                                     init, vp]
+    lib.hb_rand_limbs_wave.argtypes = []
+    lib.hb_rand_limbs_wave.restype = i64
     fused = (lib.hb_open_fused_k1, lib.hb_open_fused_k2,
              lib.hb_open_fused_k3)
     for fn in (lib.hb_open_direct, lib.hb_open_direct_mma,

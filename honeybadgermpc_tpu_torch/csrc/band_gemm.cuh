@@ -1,14 +1,13 @@
 // band_gemm: the Vandermonde band encode as one int8 GEMM per block, on
 // Hopper's wgmma and bulk async copies. Runs band_matmul_kernel
-// (band_matmul.cu), the direct open (open_direct.cu), K1 and K2 of the
+// (band_matmul.cu), the direct open (open_direct.cu), K1, K2 and K3 of the
 // three-kernel open and the per-column check (open_fused.cu), the deal
 // (randousha_deal.cu) and both extractions (randousha_extract.cu); each
 // brings its own operand source and epilogue policy (below). The MXU
 // field matmuls (mxu_fused2.cu, mxu_fused.cu) run on a sibling body at the
 // end of this header, mxu_gemm_body, on the same PTX layer and rings. The
-// other band kernels (K3, and the direct open above k = 81, where the
-// planes of a 64-lane block no longer fit shared memory) keep
-// field_core.cuh's mma.sync core.
+// direct open above k = 81, where the planes of a 64-lane block no longer
+// fit shared memory, keeps field_core.cuh's mma.sync core.
 //
 // The function (ops/fused_open.py's plain core): for each lane, k packed
 // operands -> 32 balanced int8 digits each (the planes), dotted with every
@@ -28,7 +27,9 @@
 //              producer warp each. The block owns TM = 64 MB lanes (MB = 4, 2 or 1:
 //              as many as the planes of k operands leave room for, and no
 //              more than fill the card); its planes stay in shared memory
-//              for all its columns.
+//              for all its columns. A kernel whose lane blocks alone leave
+//              SMs idle (K3: one lane per chunk) splits the columns into
+//              groups, one block per (lane block, group).
 //   planes     built once per block by all threads: the operand source
 //              policy gives the 8 packed words of a (lane, operand) item
 //              (LoadSrc: loaded through the EncodeMap; DrawSrc: drawn in
@@ -93,20 +94,17 @@ __host__ __device__ constexpr int threads(int mb) {
   return consumers(mb) * (128 + 32);
 }
 constexpr int NW = 10;                      // 32-bit words of the fold value
-constexpr uint32_t PINV = 0xFFFFFFFFu;      // -p^-1 mod 2^32 (p = 1 mod 2^32)
-
-// p in 32-bit words, little-endian: the packed form of kP.
-static __device__ __constant__ uint32_t kP32[PL] = {
-    0x00000001u, 0xFFFFFFFFu, 0xFFFE5BFEu, 0x53BDA402u,
-    0x09A1D805u, 0x3339D808u, 0x299D7D48u, 0x73EDA753u};
 
 // Where a lane's operands live. Lane g = grp * C + c:
 //   operand i, word w   src[w*sw + grp*sp + c*sc + i*si]
 // The m result columns of a lane go to the kernel's epilogue policy.
+// groups: column groups of a kernel that splits its tiles over blocks
+// (band_gemm_body's SPLIT; the others leave it 0 and run one group).
 struct EncodeMap {
   long long nlanes, C;
   long long sw, sp, sc, si;
   int k, m;
+  int groups;
 };
 
 // The fold constant I + bias * sum_r 256^r in 32-bit words
@@ -368,23 +366,32 @@ struct StoreEpi {
 //           column (the quad positions tg with the same tg >> 1) reduce
 //           its 16 lanes with one ballot and popc: one atomicAdd per warp,
 //           column and 64-lane block, when not 0.
-enum class Charge { Group, Lane, Source };
+//   Total   errs[0]: K3's one decode, which every destination is charged.
+//           The lane's count adds up in a register as for Group; finish()
+//           sums the counts of the warp's 32 threads (__reduce_add_sync)
+//           and its first thread makes one atomicAdd per 64-lane block
+//           when the sum is not 0.
+enum class Charge { Group, Lane, Source, Total };
 
-// Compare and count (K2, the per-column check, the direct open). A lane's
-// first k operands decode a polynomial: column col < nv predicts operand
-// k + col, which is compared with it; column nv (lam0) is the value at 0,
-// stored to vals [PL, nlanes] at lane g; column nv + 1 (the empty half of
-// an odd last tile) does nothing. Every caller's operand map puts lane g's
-// operand i at src[w*sw + i*si + g] (grp * sp + c * sc = g), so the
-// compared words are fetched ahead (band_gemm_body) from there. Honest
-// shares make no atomic. The lane state is kept small: at 256 lanes a
-// thread holds four.
+// Compare and count (K2, the per-column check, the direct open, K3). A
+// lane's first k operands decode a polynomial: column col < nv predicts
+// operand k + col, which is compared with it; the stored columns nv ..
+// nv + ns - 1 go to vals [PL, ns, nlanes] at lane g (column nv + s to
+// vals[(w * ns + s) * nlanes + g]); a column past them (the empty half of
+// an odd last tile) does nothing. K2, the check and the direct open store
+// one column, nv (lam0, the value at 0: vals [PL, nlanes]); K3 (Total)
+// stores ns = k, its polynomial's coefficients. Every caller's operand map
+// puts lane g's operand i at src[w*sw + i*si + g] (grp * sp + c * sc = g),
+// so the compared words are fetched ahead (band_gemm_body) from there.
+// Honest shares make no atomic. The lane state is kept small: at 256 lanes
+// a thread holds four.
 template <Charge CH>
 struct CompareEpi {
   uint32_t* vals;
   int* errs;
   const uint32_t* src;
   int nv;
+  int ns;                  // stored columns (Total; the others store one)
   struct Lane {
     long long g;
     int bad;
@@ -422,6 +429,14 @@ struct CompareEpi {
     if (!ln.valid) return;
     if (col < nv) {
       ln.bad += mismatch(words, f.w) ? 1 : 0;
+    } else if (CH == Charge::Total) {
+      const int s = col - nv;
+      if (s < ns) {
+#pragma unroll
+        for (int w = 0; w < PL; ++w)
+          vals[(static_cast<long long>(w) * ns + s) * mp.nlanes + ln.g] =
+              words[w];
+      }
     } else if (col == nv) {
       store(mp, ln, words);
     }
@@ -431,10 +446,15 @@ struct CompareEpi {
 #pragma unroll
     for (int w = 0; w < PL; ++w) vals[w * mp.nlanes + ln.g] = words[w];
   }
+  // every thread of the consumer warps, in step
   __device__ __forceinline__ void finish(const EncodeMap& mp, const Lane& ln,
                                          int, int) const {
-    if (CH != Charge::Source && ln.bad)
+    if (CH == Charge::Total) {
+      const int cnt = __reduce_add_sync(0xFFFFFFFFu, ln.bad);
+      if (cnt != 0 && (threadIdx.x & 31) == 0) atomicAdd(&errs[0], cnt);
+    } else if (CH != Charge::Source && ln.bad) {
       atomicAdd(&errs[CH == Charge::Group ? ln.g / mp.C : ln.g], ln.bad);
+    }
   }
 };
 
@@ -486,70 +506,12 @@ struct LoadSrc {
   }
 };
 
-// 12 Threefry words (little-endian, 384 bits T) -> T * 2^-144 mod p as 8
-// packed words: four 32-bit Montgomery rounds and one 16-bit round. The
-// same quotient as field_core.cuh's redc384 (nine 16-bit rounds), so the
-// same value < 2p and, after one conditional subtract, the same words
-// (plain twin ops/band_gemm.py::_redc384_words).
-__device__ __forceinline__ void redc384_words(const uint32_t (&x)[12],
-                                              uint32_t (&out)[PL]) {
-  uint32_t t[13];
-#pragma unroll
-  for (int j = 0; j < 12; ++j) t[j] = x[j];
-  t[12] = 0u;
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {            // t <- t + m p, m p = -t_r
-    const uint32_t m = t[r] * PINV;        // mod 2^32
-    unsigned long long c = 0;
-#pragma unroll
-    for (int j = 0; j < PL; ++j) {
-      const unsigned long long s =
-          static_cast<unsigned long long>(m) * kP32[j] + t[r + j] + c;
-      t[r + j] = static_cast<uint32_t>(s);
-      c = s >> 32;
-    }
-#pragma unroll
-    for (int j = r + PL; j < 13; ++j) {
-      const unsigned long long s = static_cast<unsigned long long>(t[j]) + c;
-      t[j] = static_cast<uint32_t>(s);
-      c = s >> 32;
-    }
-  }
-  // V = t[4..12] < 2^256 + p; one 16-bit round: V + m16 p = 0 mod 2^16
-  const uint32_t m16 = (0u - t[4]) & 0xFFFFu;
-  unsigned long long c = 0;
-#pragma unroll
-  for (int j = 0; j < PL; ++j) {
-    const unsigned long long s =
-        static_cast<unsigned long long>(m16) * kP32[j] + t[4 + j] + c;
-    t[4 + j] = static_cast<uint32_t>(s);
-    c = s >> 32;
-  }
-  t[12] += static_cast<uint32_t>(c);
-  uint32_t v[PL];
-#pragma unroll
-  for (int j = 0; j < PL; ++j) v[j] = (t[4 + j] >> 16) | (t[5 + j] << 16);
-  const uint32_t hi = t[12] >> 16;         // V / 2^16 < 2p
-  uint32_t dif[PL];
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int j = 0; j < PL; ++j) {
-    const unsigned long long s = static_cast<unsigned long long>(v[j]) -
-                                 kP32[j] - borrow;
-    dif[j] = static_cast<uint32_t>(s);
-    borrow = static_cast<uint32_t>(s >> 63);
-  }
-  const bool take = (hi != 0u) | (borrow == 0u);
-#pragma unroll
-  for (int j = 0; j < PL; ++j) out[j] = take ? dif[j] : v[j];
-}
-
 // Drawn in registers (the deal, randousha_deal.cu): item (g, i) is
 // coefficient i of lane g's polynomial, the uniform draw of Threefry-2x32-20
 // at counters c0 = DEAL_CTR_TAG + 8 row + s (s = 0..5), c1 = g, through
-// the 384-bit REDC. Coefficient 0 is global row 0 (the secret, the same in
-// both degrees), coefficient i >= 1 row row1 + i - 1. The coefficients
-// never reach device memory.
+// field_core.cuh's redc384_words (the sampler's reduction). Coefficient 0
+// is global row 0 (the secret, the same in both degrees), coefficient
+// i >= 1 row row1 + i - 1. The coefficients never reach device memory.
 constexpr uint32_t DEAL_CTR_TAG = 0x10000u;
 
 struct DrawSrc {
@@ -599,7 +561,12 @@ __device__ __forceinline__ void build_planes(unsigned char* planes,
   }
 }
 
-template <int MB, class Src, class Epi>
+// SPLIT: the column tiles are split into mp.groups groups of
+// ceil(tiles / groups) consecutive tiles; block b serves lane block
+// b / groups and group b % groups (its planes are built by every block of
+// its lanes, its band streams only its group's tiles). Without it a block
+// serves all tiles of lane block b.
+template <int MB, class Src, class Epi, bool SPLIT = false>
 __device__ __forceinline__ void band_gemm_body(
     unsigned char* smem, const Src& src,
     const unsigned char* __restrict__ band, const EncodeMap& mp,
@@ -609,6 +576,10 @@ __device__ __forceinline__ void band_gemm_body(
   constexpr int NSLOT = CONSUMERS * SLOTS;
   const int k = mp.k;
   const int ntiles = (mp.m + NT - 1) / NT;
+  const int groups = SPLIT ? mp.groups : 1;
+  const int tpg = SPLIT ? (ntiles + groups - 1) / groups : ntiles;
+  const int t0 = SPLIT ? static_cast<int>(blockIdx.x % groups) * tpg : 0;
+  const int t1 = SPLIT ? min(t0 + tpg, ntiles) : ntiles;   // tiles t0..t1-1
   const int nst = (k + KS - 1) / KS;       // ring slots per tile
   unsigned char* planes = smem;
   const uint32_t ring_s = smem_u32(smem + static_cast<size_t>(NBAL) * k * TM);
@@ -616,7 +587,8 @@ __device__ __forceinline__ void band_gemm_body(
   const uint32_t empty_s = full_s + 8 * NSLOT;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, laneid = tid & 31;
-  const long long lane0 = static_cast<long long>(blockIdx.x) * TM;
+  const long long lane0 =
+      static_cast<long long>(SPLIT ? blockIdx.x / groups : blockIdx.x) * TM;
   const int pr = warp - CONSUMERS * 4;     // producer of ring pr, or < 0
 
   if (tid == 0) {
@@ -633,7 +605,7 @@ __device__ __forceinline__ void band_gemm_body(
   // waits for each of its phases in order. The first SLOTS loads of a ring
   // need no release: they fly under the plane build.
   auto issue = [&](int sr) {               // ring pr's load number sr
-    const int ct = (sr / nst) * CONSUMERS + pr;
+    const int ct = t0 + (sr / nst) * CONSUMERS + pr;
     const int kk0 = (sr % nst) * KS;
     const int steps = k - kk0 < KS ? k - kk0 : KS;
     const int slot = pr * SLOTS + sr % SLOTS;
@@ -644,8 +616,8 @@ __device__ __forceinline__ void band_gemm_body(
               band + (static_cast<size_t>(ct) * k + kk0) * STEP_BYTES,
               steps * STEP_BYTES, full_s + 8 * slot);
   };
-  const int nload = pr >= 0 ? ((ntiles - pr + CONSUMERS - 1) / CONSUMERS) * nst
-                            : 0;
+  const int nload =
+      pr >= 0 ? ((t1 - t0 - pr + CONSUMERS - 1) / CONSUMERS) * nst : 0;
   if (pr >= 0 && laneid == 0)
     for (int sr = 0; sr < SLOTS && sr < nload; ++sr) issue(sr);
   build_planes<MB>(planes, src, mp, lane0);
@@ -682,7 +654,7 @@ __device__ __forceinline__ void band_gemm_body(
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[mb][i] = 0;
   int sr = 0;                              // this ring's load number
-  for (int ct = wgi; ct < ntiles; ct += CONSUMERS) {
+  for (int ct = t0 + wgi; ct < t1; ct += CONSUMERS) {
     const int col = ct * NT + cl;
     // what the column needs besides its result (the compared words): the
     // first lane's loads go out before the tile's dot, each next lane's
@@ -761,8 +733,8 @@ int launch_with(Kernel kern, const Src& src, const void* band,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned grid =
-      static_cast<unsigned>((mp.nlanes + 64 * MB - 1) / (64 * MB));
+  const unsigned grid = static_cast<unsigned>(
+      (mp.nlanes + 64 * MB - 1) / (64 * MB) * (mp.groups > 1 ? mp.groups : 1));
   kern<<<grid, threads(MB), smem, static_cast<cudaStream_t>(stream)>>>(
       src, static_cast<const unsigned char*>(band), mp, wf, epi);
   return static_cast<int>(cudaGetLastError());

@@ -7,7 +7,8 @@
 // (honeybadgermpc_tpu/ops/fused_open.py: _planes_of_packed/_balance_bytes,
 // _band_dot_fold, _fold_reduce_bal, _pack16, _mismatch; ops/mxu_matmul.py:
 // _redc_step; ops/pallas_field.py: _threefry2x32, _redc384_reg). Every
-// function here reproduces that arithmetic bit for bit in uint32 registers:
+// function here gives that arithmetic's words bit for bit in uint32
+// registers (redc384_words by the same quotient on 32-bit words):
 //
 //   balance_word     4 bytes of a packed word -> 4 balanced int8 digits,
 //                    threading the carry of the base-256 balancing chain
@@ -19,7 +20,9 @@
 //   pack16           16 limbs -> 8 packed words
 //   mismatch         predicted vs received share, any word differs
 //   threefry2x32     Threefry-2x32, 20 rounds
-//   redc384          24 halfwords (384 bits) -> 9 REDC rounds -> 16 limbs
+//   redc384_words    12 words (384 bits) -> four 32-bit REDC rounds and one
+//                    16-bit round -> 8 packed words (the sampler and the
+//                    deal's draw, band_gemm.cuh's DrawSrc)
 //
 // All loops over limbs are fully unrolled so the limb arrays live in
 // registers.
@@ -42,6 +45,13 @@ constexpr uint32_t N0 = 0xFFFFu;   // -p^{-1} mod 2^16
 static __device__ __constant__ uint32_t kP[L] = {
     0x0001u, 0x0000u, 0xFFFFu, 0xFFFFu, 0x5BFEu, 0xFFFEu, 0xA402u, 0x53BDu,
     0xD805u, 0x09A1u, 0xD808u, 0x3339u, 0x7D48u, 0x299Du, 0xA753u, 0x73EDu};
+
+constexpr uint32_t PINV = 0xFFFFFFFFu;      // -p^-1 mod 2^32 (p = 1 mod 2^32)
+
+// p in 32-bit words, little-endian: the packed form of kP.
+static __device__ __constant__ uint32_t kP32[PL] = {
+    0x00000001u, 0xFFFFFFFFu, 0xFFFE5BFEu, 0x53BDA402u,
+    0x09A1D805u, 0x3339D808u, 0x299D7D48u, 0x73EDA753u};
 
 // Per-contraction-length constants of the balanced scheme, built on the host
 // (ops/fused_open.py::_bal_fold_init, _bal_bias) and passed by value.
@@ -303,24 +313,62 @@ __device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
   }
 }
 
-// 24 halfwords (little-endian, plus one spare zero row) -> canonical limbs
-// of T * 2^-144 mod p: nine rounds of (m = -t/p mod 2^16; t += m*p;
-// t >>= 16) leave a value < 2p. The shift is an index offset: round rr
-// works on rows[rr..rr+16].
-__device__ __forceinline__ void redc384(uint32_t (&rows)[25],
-                                        uint32_t (&out)[L]) {
+// 12 Threefry words (little-endian, 384 bits T) -> T * 2^-144 mod p as 8
+// packed words: four 32-bit Montgomery rounds and one 16-bit round (the
+// quotient of nine 16-bit rounds, ops/montgomery.py::_redc384_rows, so the
+// same value < 2p and, after one conditional subtract, the same words;
+// plain twin ops/band_gemm.py::_redc384_words).
+__device__ __forceinline__ void redc384_words(const uint32_t (&x)[12],
+                                              uint32_t (&out)[PL]) {
+  uint32_t t[13];
 #pragma unroll
-  for (int rr = 0; rr < 9; ++rr) {
-    const uint32_t m = ((rows[rr] & MASK) * N0) & MASK;
+  for (int j = 0; j < 12; ++j) t[j] = x[j];
+  t[12] = 0u;
 #pragma unroll
-    for (int j = 0; j < L; ++j) {
-      const uint32_t mp = m * kP[j];
-      rows[rr + j] += mp & MASK;
-      rows[rr + j + 1] += mp >> 16;
+  for (int r = 0; r < 4; ++r) {            // t <- t + m p, m p = -t_r
+    const uint32_t m = t[r] * PINV;        // mod 2^32
+    unsigned long long c = 0;
+#pragma unroll
+    for (int j = 0; j < PL; ++j) {
+      const unsigned long long s =
+          static_cast<unsigned long long>(m) * kP32[j] + t[r + j] + c;
+      t[r + j] = static_cast<uint32_t>(s);
+      c = s >> 32;
     }
-    rows[rr + 1] += rows[rr] >> 16;
+#pragma unroll
+    for (int j = r + PL; j < 13; ++j) {
+      const unsigned long long s = static_cast<unsigned long long>(t[j]) + c;
+      t[j] = static_cast<uint32_t>(s);
+      c = s >> 32;
+    }
   }
-  normalize_cond_sub(rows + 9, 0u, out);
+  // V = t[4..12] < 2^256 + p; one 16-bit round: V + m16 p = 0 mod 2^16
+  const uint32_t m16 = (0u - t[4]) & 0xFFFFu;
+  unsigned long long c = 0;
+#pragma unroll
+  for (int j = 0; j < PL; ++j) {
+    const unsigned long long s =
+        static_cast<unsigned long long>(m16) * kP32[j] + t[4 + j] + c;
+    t[4 + j] = static_cast<uint32_t>(s);
+    c = s >> 32;
+  }
+  t[12] += static_cast<uint32_t>(c);
+  uint32_t v[PL];
+#pragma unroll
+  for (int j = 0; j < PL; ++j) v[j] = (t[4 + j] >> 16) | (t[5 + j] << 16);
+  const uint32_t hi = t[12] >> 16;         // V / 2^16 < 2p
+  uint32_t dif[PL];
+  uint32_t borrow = 0;
+#pragma unroll
+  for (int j = 0; j < PL; ++j) {
+    const unsigned long long s = static_cast<unsigned long long>(v[j]) -
+                                 kP32[j] - borrow;
+    dif[j] = static_cast<uint32_t>(s);
+    borrow = static_cast<uint32_t>(s >> 63);
+  }
+  const bool take = (hi != 0u) | (borrow == 0u);
+#pragma unroll
+  for (int j = 0; j < PL; ++j) out[j] = take ? dif[j] : v[j];
 }
 
 }  // namespace hb

@@ -1,6 +1,6 @@
 """Host side of the Hopper band-encode core (``csrc/band_gemm.cuh``).
 
-The band matmul (``ops/band_matmul.py``), K1 and K2 of the three-kernel
+The band matmul (``ops/band_matmul.py``), K1, K2 and K3 of the three-kernel
 open (``ops/fused_open.py``), the deal and both extractions
 (``ops/fused_randousha.py``) run on one int8 GEMM core: per block, the
 lanes' balanced digit planes [lanes, 32k] against the folded band [32k, 32
@@ -10,7 +10,8 @@ kernel's own epilogue policy (a store, K2's compare and count, the
 extractions' two stores). The planes' operands come from the kernel's
 source policy: loaded (``LoadSrc``) or, in the deal, drawn in registers
 (``DrawSrc``). This module holds what the host does for it (the band's
-tile layout and its device re-lay, the launch plan, the fold constants)
+tile layout and its device re-lay, the launch plan and its column
+groups, the fold constants)
 and plain twins of the layouts, of the draw's REDC and of the epilogue,
 which the CPU tests hold against the reference.
 
@@ -82,23 +83,49 @@ def _gemm_plan(k: int, nlanes: int, nsm: int = 132) -> int:
     raise ValueError(f"contraction length {k} does not fit shared memory")
 
 
+def _gemm_split(k: int, nlanes: int, m: int, nsm: int = 132):
+    """(64-lane blocks per thread block, column groups) of a launch that
+    may split its m columns' tiles over blocks (K3): _gemm_plan's, one
+    group, where its lane blocks give every SM a block. Else 128-lane
+    blocks where their planes fit (half the band's L2 stream of 64-lane
+    ones, and three consumer warpgroups where 256-lane ones have two),
+    and the most groups whose blocks still run in one wave (one block per
+    SM resides; a second wave of smaller blocks was slower on an H100,
+    PERF.md §6), each group keeping at least one tile per consumer
+    warpgroup."""
+    mb = _gemm_plan(k, nlanes, nsm)
+    if -(-nlanes // (64 * mb)) >= nsm:
+        return mb, 1
+    mb = 2 if smem_bytes(k, 2) <= SMEM_MAX else 1
+    most = max(1, -(-m // NT) // consumers(mb))
+    return mb, max(1, min(most, nsm // -(-nlanes // (64 * mb))))
+
+
 def _tile_rows():
     """(column within the tile, diagonal) of each of a band tile's rows."""
     n = np.arange(TILE_N)
     return (n % 8) // 4, 16 * ((n // 2) % 2) + 2 * (n // 8) + n % 2
 
 
-def _gemm_band(band: np.ndarray, ncp: int, k: int, m: int) -> np.ndarray:
+def _gemm_band(band: np.ndarray, ncp: int, k: int, m: int,
+               order=None) -> np.ndarray:
     """Re-lay a reference band [NBAL*ncp, >= NBAL*k] (row r*ncp + col,
     column s*k + kk) for csrc/band_gemm.cuh: int8 [ceil(m/2), k, 2048],
-    one wgmma B tile per (column pair, k-step). A pure permutation of the
-    reference's bytes for the first m columns (ncp >= 2*ceil(m/2), as
-    ncp is a multiple of 8)."""
+    one wgmma B tile per (column pair, k-step). Kernel column j is the
+    reference's column j (ncp >= 2*ceil(m/2), as ncp is a multiple of 8),
+    or order[j] (m distinct columns; the empty half of an odd last tile
+    zero). A pure permutation of the reference's bytes."""
     ntiles = -(-m // NT)
-    assert NT * ntiles <= ncp, (m, ncp)
     b = band[:, :NBAL * k].reshape(NBAL, ncp, NBAL, k)      # r, col, s, kk
+    if order is None:
+        assert NT * ntiles <= ncp, (m, ncp)
+        order = np.arange(NT * ntiles)
+    else:
+        assert len(order) == m == len(set(order)) and max(order) < ncp
+        b = np.concatenate([b, np.zeros_like(b[:, :1])], axis=1)
+        order = np.array(list(order) + [ncp] * (NT * ntiles - m))
     colt, diag = _tile_rows()
-    cols = NT * np.arange(ntiles)[:, None] + colt[None, :]
+    cols = order[NT * np.arange(ntiles)[:, None] + colt[None, :]]
     t = b[diag[None, :], cols]                  # [ntiles, 64 n, 32 s, kk]
     t = t.reshape(ntiles, 8, 8, 2, 16, k)       # ct, ng, r8, kc, byte, kk
     return np.ascontiguousarray(t.transpose(0, 5, 3, 1, 2, 4)).reshape(

@@ -14,7 +14,10 @@ the Montgomery representation. Threefry is a fixed function, so for the
 same key data the output is bit-identical to the reference kernel's.
 
 On a CUDA device the sampler is the hand-written kernel
-``csrc/rand_limbs.cu``; ``_rand_limbs_plain`` is its plain PyTorch version.
+``csrc/rand_limbs.cu``, which reduces the 12 Threefry words on 32-bit
+words (``redc384_words``: the same quotient, so the same limbs);
+``_rand_limbs_plain`` is its plain PyTorch version and
+``_rand_limbs_words`` the plain twin of the kernel's word path.
 
 Finish arithmetic: ``(a*b + c) mod p`` and ``(a - b) mod p`` on PACKED
 words in the extraction's native layout ``[PL, n, R, S]``, the two
@@ -36,6 +39,7 @@ from __future__ import annotations
 import torch
 
 from . import montgomery as mont
+from .band_gemm import _redc384_words
 from .fused_open import PL, _launch_stream, pack_limbs, unpack_limbs
 from .limbs import L, MASK, W
 
@@ -122,6 +126,31 @@ def _threefry_redc384(key_data, c0_base, c1):
             rows.append(wrd & MASK)
             rows.append(wrd >> W)
     return mont._redc384_rows(rows)
+
+
+def _rand_limbs_words(key_data, e):
+    """Plain twin of csrc/rand_limbs.cu's word path: elements at counters
+    e (int64 tensor of uint32 values) -> int32 [L, ...]. The 12 Threefry
+    words at counters (s, e), s = 0..5, through the 32-bit REDC
+    (band_gemm._redc384_words), each packed word split into its two
+    16-bit limbs."""
+    k0, k1 = _key_ints(key_data)
+    x = []
+    for s in range(6):
+        x.extend(_threefry2x32(k0, k1, torch.full_like(e, s), e & _M32))
+    return unpack_limbs(_redc384_words(x))
+
+
+def rand_wave() -> int:
+    """Elements one pass of csrc/rand_limbs.cu's resident grid draws on the
+    current CUDA device (its blocks resident on every SM x threads x
+    elements per thread); the launch is one pass of that grid at most."""
+    from .._build import lib
+    per_wave = lib().hb_rand_limbs_wave()
+    if per_wave <= 0:
+        raise RuntimeError(f"rand_limbs occupancy query failed: CUDA error "
+                           f"{-per_wave}")
+    return per_wave
 
 
 def _rand_limbs_cuda(key_data, numel: int, device):

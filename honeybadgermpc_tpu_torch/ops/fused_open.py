@@ -37,7 +37,7 @@ import functools
 import numpy as np
 import torch
 
-from .band_gemm import _fold_array, _gemm_band, _gemm_plan
+from .band_gemm import _fold_array, _gemm_band, _gemm_plan, _gemm_split
 from .limbs import L, MASK, N0, P, P_LIMBS, W
 
 TB = 128            # chunk tile of the reference's layouts (kept for parity)
@@ -188,11 +188,13 @@ def _bands_np(points: tuple, k: int):
 
 def _kernel_band(band: np.ndarray, ncp: int, k: int) -> np.ndarray:
     """Re-lay a reference band [NBAL*ncp, >= NBAL*k] (row r*ncp + col,
-    column s*k + kk) for the CUDA kernels: int32 [ncp, k, 2, 32, 4], the A
-    fragments of ``mma.sync.m16n8k32.s8`` in the order the threads load
-    them. For column `col`, k-step `kk` (one operand's 32 digits), m-tile
-    `mt` (diagonals 16mt..16mt+15) and thread `l` (g = l >> 2, tg = l & 3),
-    register j holds the four int8 band digits (lowest byte first)
+    column s*k + kk) for the mma.sync band kernel (the direct open above
+    k = 81, csrc/open_direct.cu's open_direct_mma_kernel): int32 [ncp, k,
+    2, 32, 4], the A fragments of ``mma.sync.m16n8k32.s8`` in the order
+    the threads load them. For column `col`, k-step `kk` (one operand's 32
+    digits), m-tile `mt` (diagonals 16mt..16mt+15) and thread `l`
+    (g = l >> 2, tg = l & 3), register j holds the four int8 band digits
+    (lowest byte first)
 
         row r = 16*mt + g + 8*(j & 1),   s = 16*(j >> 1) + 4*tg + 0..3
 
@@ -215,11 +217,11 @@ def _kernel_band(band: np.ndarray, ncp: int, k: int) -> np.ndarray:
 
 
 def _smem_plan(k: int):
-    """Launch shape of a band kernel for a contraction of k operands:
-    (tl lanes per block, wg column slots); the block has tl*wg threads.
-    It keeps its lanes' digit planes (8k words per lane, row stride tl+8)
-    and a 5 KB transpose area per warp in shared memory, inside the 227 KB
-    a Hopper block may use. The kernels are bound by operand fetch latency
+    """Launch shape of the mma.sync band kernel for a contraction of k
+    operands: (tl lanes per block, wg column slots); the block has tl*wg
+    threads. It keeps its lanes' digit planes (8k words per lane, row
+    stride tl+8) and a 5 KB transpose area per warp in shared memory,
+    inside the 227 KB a Hopper block may use. The kernels are bound by operand fetch latency
     and bandwidth, so many warps per block come first (16, on 64 lanes
     where they fit), fewer lanes and then fewer warps for long
     contractions."""
@@ -428,36 +430,41 @@ plain_calls_on_cuda = 0
 _PLAIN_LANES = 1 << 15     # lanes per step of the plain versions
 
 
+def _k3_columns(n: int, k: int) -> tuple:
+    """K3's kernel columns as columns of the reference's R2 band [Minv |
+    lam(points[k:])]: the n - k compare columns first (kernel column
+    col < nv predicts operand k + col, as CompareEpi has it), then the k
+    coefficients (kernel column nv + s is coefficient s)."""
+    return tuple(range(k, n)) + tuple(range(k))
+
+
 @functools.lru_cache(maxsize=None)
 def _open_kernel_bands(points: tuple, k: int):
-    """The kernel layouts of the three bands (numpy), per stage (mma.sync
-    fragments or None, band_gemm tiles or None), each cut to the columns
-    its kernel walks: K1 and K2 run on band_gemm's core (``_gemm_band``),
-    K3 on the mma.sync core (``_kernel_band``). K2's tiles also serve the
-    per-column check (ops/fused_randousha.py), on the same core."""
+    """The three bands in band_gemm tiles (numpy, ``_gemm_band``), each cut
+    to the columns its kernel walks: K1's n encode columns, K2's nv + 1,
+    K3's n in ``_k3_columns`` order. K2's tiles also serve the per-column
+    check (ops/fused_randousha.py), on the same core."""
     n = len(points)
     nv = n - k
     (enc, n1), (r1, n2), (r2, n3), _, _ = _bands_np(points, k)
-    return ((None, _gemm_band(enc[0], n1, k, n)),
-            (None, _gemm_band(r1[0], n2, k, nv + 1)),
-            (np.ascontiguousarray(_kernel_band(r2[0], n3, k)[:n]), None))
+    return (_gemm_band(enc[0], n1, k, n), _gemm_band(r1[0], n2, k, nv + 1),
+            _gemm_band(r2[0], n3, k, n, order=_k3_columns(n, k)))
 
 
 @functools.lru_cache(maxsize=None)
 def _open_bands(points: tuple, k: int, device: torch.device):
     """The three bands on `device`: ((reference-layout band [NBAL*ncp,
-    kcols] int8, ncp, fragment band or None, tile band or None), ...) for
-    K1, K2, K3, plus the fold constants. The kernel layouts
-    (``_open_kernel_bands``) exist for CUDA devices only."""
+    kcols] int8, ncp, tile band or None), ...) for K1, K2, K3, plus the
+    fold constants. The tiles (``_open_kernel_bands``) exist for CUDA
+    devices only."""
     enc, r1, r2, _, _ = _bands_np(points, k)
-    kern = _open_kernel_bands(points, k) if device.type == "cuda" else \
-        ((None, None),) * 3
+    tiles = _open_kernel_bands(points, k) if device.type == "cuda" else \
+        (None,) * 3
     out = []
-    for (band, ncp), layouts in zip((enc, r1, r2), kern):
+    for (band, ncp), t in zip((enc, r1, r2), tiles):
         ref = torch.from_numpy(np.ascontiguousarray(band[0])).to(device)
-        out.append((ref, ncp, *(None if x is None else
-                                torch.from_numpy(x).to(device)
-                                for x in layouts)))
+        out.append((ref, ncp,
+                    None if t is None else torch.from_numpy(t).to(device)))
     return tuple(out), _bal_fold_init(k), _bal_bias(k)
 
 
@@ -472,8 +479,8 @@ def _k1_plain(view, points: tuple):
     int32 [PL, n_src, n_dst, C]."""
     _count_plain(view)
     _, n, k, C = view.shape
-    ((band, ncp, _, _), _, _), init, bias = _open_bands(points, k,
-                                                        view.device)
+    ((band, ncp, _), _, _), init, bias = _open_bands(points, k,
+                                                     view.device)
     cols = torch.empty((PL, n, n, C), dtype=torch.int32, device=view.device)
     for p in range(n):
         for c0 in range(0, C, _PLAIN_LANES):
@@ -492,8 +499,8 @@ def _r1_lanes_plain(lanes, points: tuple, k: int):
     per-column check's (ops/fused_randousha.py)."""
     _, n, nl = lanes.shape
     nv = n - k
-    (_, (band, ncp, _, _), _), init, bias = _open_bands(points, k,
-                                                        lanes.device)
+    (_, (band, ncp, _), _), init, bias = _open_bands(points, k,
+                                                     lanes.device)
     vals = torch.empty((PL, nl), dtype=torch.int32, device=lanes.device)
     bad = torch.empty((nl,), dtype=torch.int32, device=lanes.device)
     for l0 in range(0, nl, _PLAIN_LANES):
@@ -521,8 +528,8 @@ def _k3_plain(vals, points: tuple, k: int):
     _count_plain(vals)
     _, n, C = vals.shape
     nv = n - k
-    (_, _, (band, ncp, _, _)), init, bias = _open_bands(points, k,
-                                                        vals.device)
+    (_, _, (band, ncp, _)), init, bias = _open_bands(points, k,
+                                                     vals.device)
     sec = torch.empty((PL, k, C), dtype=torch.int32, device=vals.device)
     bad = torch.zeros((1,), dtype=torch.int64, device=vals.device)
     for c0 in range(0, C, _PLAIN_LANES):
@@ -548,7 +555,7 @@ def _open_k1_cuda(view, points: tuple):
     global launches_k1
     from .._build import lib
     _, n, k, C = view.shape
-    tiles = _open_bands(points, k, view.device)[0][0][3]
+    tiles = _open_bands(points, k, view.device)[0][0][2]
     out = torch.empty((PL, n, n, C), dtype=torch.int32, device=view.device)
     rc = lib().hb_open_fused_k1(
         view.data_ptr(), tiles.data_ptr(), out.data_ptr(), n, k, C,
@@ -566,7 +573,7 @@ def _open_k2_cuda(cols, points: tuple, k: int):
     global launches_k2
     from .._build import lib
     _, n, _, C = cols.shape
-    tiles = _open_bands(points, k, cols.device)[0][1][3]
+    tiles = _open_bands(points, k, cols.device)[0][1][2]
     vals = torch.empty((PL, n, C), dtype=torch.int32, device=cols.device)
     errs = torch.zeros(n, dtype=torch.int32, device=cols.device)
     rc = lib().hb_open_fused_k2(
@@ -580,20 +587,22 @@ def _open_k2_cuda(cols, points: tuple, k: int):
 
 
 def _open_k3_cuda(vals, points: tuple, k: int):
-    """Launch K3 of csrc/open_fused.cu (the mma.sync core) on vals (CUDA)
-    -> (secrets int32 [PL, k, C], errs int32 [1])."""
+    """Launch K3 of csrc/open_fused.cu (on csrc/band_gemm.cuh, its column
+    tiles split into groups over blocks) on vals (CUDA) -> (secrets int32
+    [PL, k, C], errs int32 [1])."""
     global launches_k3
     from .._build import lib
     n = len(points)
-    kern = _open_bands(points, k, vals.device)[0][2][2]
-    tl, wg = _smem_plan(k)
-    init, bias = _fold_consts(k)
+    tiles = _open_bands(points, k, vals.device)[0][2][2]
     C = vals.shape[-1]
+    nsm = torch.cuda.get_device_properties(vals.device).multi_processor_count
+    mb, groups = _gemm_split(k, C, n, nsm)
     sec = torch.empty((PL, k, C), dtype=torch.int32, device=vals.device)
     errs = torch.zeros(1, dtype=torch.int32, device=vals.device)
-    rc = lib().hb_open_fused_k3(vals.data_ptr(), kern.data_ptr(),
-                                sec.data_ptr(), errs.data_ptr(), n, k, C, tl,
-                                wg, init, bias, _launch_stream(vals))
+    rc = lib().hb_open_fused_k3(
+        vals.data_ptr(), tiles.data_ptr(), sec.data_ptr(), errs.data_ptr(), n,
+        k, C, mb, groups, _fold_array(_bal_fold_init(k), _bal_bias(k)),
+        _launch_stream(vals))
     launches_k3 += 1
     if rc != 0:
         raise RuntimeError(

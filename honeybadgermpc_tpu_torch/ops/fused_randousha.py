@@ -472,7 +472,7 @@ def _randousha_check_cuda(chk, k: int, points: tuple):
     global launches_check
     from .._build import lib
     _, n, ncheckp, sp = chk.shape
-    tiles = _open_bands(points, k, chk.device)[0][1][3]
+    tiles = _open_bands(points, k, chk.device)[0][1][2]
     vals = torch.empty((PL, ncheckp, sp), dtype=torch.int32,
                        device=chk.device)
     errs = torch.zeros((ncheckp, sp), dtype=torch.int32, device=chk.device)

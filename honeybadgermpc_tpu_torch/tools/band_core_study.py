@@ -1,8 +1,8 @@
 """Where the wgmma band core's time goes (rows 1, 3, 4, 5a, 5b, 6, 13, 14,
-16 and 17 of PERF.md).
+16, 17 and 18 of PERF.md), and the field sampler's (row 2).
 
     python3 honeybadgermpc_tpu_torch/tools/band_core_study.py [--parent DIR]
-        [--mxu-only]
+        [--mxu-only | --sampler-k3]
 
 Needs one CUDA card and nvcc. Builds knock-out variants of
 ``csrc/band_gemm.cuh`` (patched copies under the package's build
@@ -61,6 +61,22 @@ results stay in the scratch tensor: no last phase) and, for row 13 with
 resident planes, cluster2 (two-block clusters multicasting the band). With
 --parent the other checkout's variants are timed the same way in a
 process of its own; --mxu-only times rows 13 and 14 alone.
+
+Rows 2 and 18 (--sampler-k3, time_r2_r18): the sampler at SEG x T =
+354,816 elements and K3 at n=64, k=22, C=7,820 and k=43, C=4,001 (the
+fallback runs' shapes), through the wrappers, the kernel's device time
+from the profiler, on knock-out variants of the checkout's sources (the
+16-bit kernels before the redesign or the word kernel and the core):
+sampler final, threefry_only (no reduction), reduction_only (of a word
+made from the counter, no Threefry), store_only, and for the word kernel
+one_element (one element per thread and pass) and full_grid (one thread
+per pair of elements, no grid-stride loop), with its SASS instruction
+mix (cuobjdump); K3 final, no_epilogue, no_dot, no_planes and
+stream_only, on the core at its plan and at 64-lane blocks in one group,
+final also at every (lane tile, column groups) of K3_PLANS that fits,
+and slots4 / ks8 (deeper band rings: 4 slots, 8 k-steps per slot) where
+they fit. The final variants are held against the plain versions. With
+--parent the other tree is timed the same way before and after.
 """
 
 import argparse
@@ -859,12 +875,13 @@ def build_mxu_variants(csrc, work):
 
 
 class _LibProxy:
-    """The tree's kernel library with hb_mxu_fused2 and hb_mxu_fused taken
-    from a variant build (same argument types)."""
+    """The tree's kernel library with the entries `fns` (by default
+    hb_mxu_fused2 and hb_mxu_fused) taken from a variant build (same
+    argument types)."""
 
-    def __init__(self, real, var):
+    def __init__(self, real, var, fns=("hb_mxu_fused2", "hb_mxu_fused")):
         self._real = real
-        for fn in ("hb_mxu_fused2", "hb_mxu_fused"):
+        for fn in fns:
             f = getattr(var, fn)
             f.argtypes = getattr(real, fn).argtypes
             f.restype = getattr(real, fn).restype
@@ -949,6 +966,243 @@ def time_mxu(tag, work, variants=True):
         torch.cuda.empty_cache()
 
 
+# -- rows 2 and 18: the field sampler and K3 ----------------------------------
+
+RAND_NUMEL = 16896 * 21               # SEG x T: the open path's dealer draw
+K3_SHAPES = ((64, 22, 7820), (64, 43, 4001))   # n, k, C on the fallback runs
+# (64-lane blocks per thread block, column groups) K3 is timed at on the
+# core, where the planes fit shared memory and every consumer warpgroup
+# gets a tile
+K3_PLANS = ((1, 1), (1, 2), (1, 4), (2, 1), (2, 2), (2, 4), (2, 8), (4, 1),
+            (4, 2), (4, 4), (4, 8))
+
+
+def sass_mix(so, kernel):
+    """Static SASS instruction counts of the function whose mangled name
+    holds `kernel` in the shared library `so` (cuobjdump): {opcode with
+    its modifiers: count}, and the total under key "total"."""
+    import collections
+    import re
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", so], capture_output=True,
+                         text=True).stdout
+    mix, inside = collections.Counter(), False
+    for ln in out.splitlines():
+        if "Function :" in ln:
+            inside = kernel in ln
+            continue
+        m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                      ln)
+        if inside and m:
+            mix[m.group(1)] += 1
+    mix["total"] = sum(mix.values())
+    return dict(mix)
+
+
+def _sampler_patches(src):
+    """Knock-outs of csrc/rand_limbs.cu as the checkout has it: the 16-bit
+    kernel (one thread per element, field_core.cuh's redc384) or the word
+    kernel (redc384_words, a grid-stride loop over pairs of elements)."""
+    if "redc384(rows, limbs);" in src:
+        draw = ("    threefry2x32(k0, k1, static_cast<uint32_t>(s), "
+                "static_cast<uint32_t>(e),\n                 w0, w1);",
+                "    w0 = static_cast<uint32_t>(e) * 0x9E3779B9u + k0 + s;\n"
+                "    w1 = w0 ^ (k1 + s);")
+        redc = ("  redc384(rows, limbs);",
+                "#pragma unroll\n  for (int j = 0; j < L; ++j) "
+                "limbs[j] = rows[j] ^ rows[j + 8];")
+        return {"final": [], "threefry_only": [redc],
+                "reduction_only": [draw], "store_only": [draw, redc]}
+    draw = ("        threefry2x32(k0, k1, s, c1, x[u][2 * s], x[u][2 * s + 1]);",
+            "        { x[u][2 * s] = c1 * 0x9E3779B9u + k0 + s;\n"
+            "          x[u][2 * s + 1] = x[u][2 * s] ^ (k1 + s); }")
+    redc = ("      redc384_words(x[u], words[u]);",
+            "#pragma unroll\n      for (int j = 0; j < PL; ++j) "
+            "words[u][j] = x[u][j] ^ x[u][j + 4];")
+    return {"final": [], "threefry_only": [redc], "reduction_only": [draw],
+            "store_only": [draw, redc],
+            "one_element": [("constexpr int RAND_EPT = 2;",
+                             "constexpr int RAND_EPT = 1;")],
+            "full_grid": [("  const long long waves = 1;",
+                           "  const long long waves = (numel + per_wave - 1)"
+                           " / per_wave;")]}
+
+
+def _k3_old_patches():
+    """Knock-outs of open_fused.cu's mma.sync K3 (before the wgmma core took
+    it): {variant: {file: patches}}."""
+    dot = ("      mma_s8(acc[0][nt], a_lo, b0, b1);\n"
+           "      mma_s8(acc[1][nt], a_hi, b0, b1);",
+           "      acc[0][nt][0] += b0 ^ a_lo.x;\n"
+           "      acc[1][nt][1] += b1 ^ a_hi.w;")
+    planes = ("  for (int i = slot; i < k; i += wg) {",
+              "  for (int i = slot; false && i < k; i += wg) {")
+    noepi = ("CUT", "    int32_t ds[NBAL];\n",
+             "  // the column slots of a lane add into one count",
+             "    if (acc[0][0][0] == 0x7fffffff && acc[1][3][3] == 3) "
+             "bad += 1;\n  }\n")
+    return {"final": {},
+            "no_epilogue": {"open_fused.cu": [noepi]},
+            "no_dot": {"field_core.cuh": [dot]},
+            "no_planes": {"open_fused.cu": [planes]},
+            "stream_only": {"open_fused.cu": [noepi, planes],
+                            "field_core.cuh": [dot]}}
+
+
+def build_r2_r18_variants(csrc, work):
+    """Knock-out variants of the sampler and of K3 as the checkout whose
+    kernel sources are `csrc` has them. -> ({("rand" | "k3", variant):
+    CDLL}, K3's core: "mma.sync" or "wgmma")."""
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    text = {fn: open(os.path.join(csrc, fn)).read() for fn in os.listdir(csrc)
+            if fn.endswith((".cu", ".cuh"))}
+    old_k3 = "open_fused_k3_kernel(" in text["open_fused.cu"]
+    jobs = {}
+    for name, pset in _sampler_patches(text["rand_limbs.cu"]).items():
+        jobs["rand", name] = ("rand_limbs.cu",
+                              {"rand_limbs.cu": _patch(
+                                  text["rand_limbs.cu"], pset,
+                                  f"sampler variant {name}")})
+    if old_k3:
+        for name, files in _k3_old_patches().items():
+            jobs["k3", name] = ("open_fused.cu", {
+                fn: _patch(text[fn], pset, f"K3 variant {name}")
+                for fn, pset in files.items()})
+    else:
+        core = _patches()
+        core["slots4"] = [("constexpr int SLOTS = 2;",
+                           "constexpr int SLOTS = 4;")]
+        core["ks8"] = [("constexpr int KS = 4;", "constexpr int KS = 8;")]
+        for name in NEW_VARIANTS + ("no_planes", "slots4", "ks8"):
+            jobs["k3", name] = ("open_fused.cu", {
+                "band_gemm.cuh": _source(name, core[name],
+                                         text["band_gemm.cuh"])})
+    procs = {}
+    for (kind, name), (main, files) in jobs.items():
+        d = os.path.join(work, f"{kind}_{name}")
+        os.makedirs(d, exist_ok=True)
+        for fn, src in text.items():
+            with open(os.path.join(d, fn), "w") as f:
+                f.write(files.get(fn, src))
+        so = os.path.join(d, "lib.so")
+        procs[kind, name] = (so, subprocess.Popen(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+             "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", so,
+             os.path.join(d, main)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for key, (so, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"variant {key} does not build:\n{out}")
+        libs[key] = ctypes.CDLL(so)
+    return libs, "mma.sync" if old_k3 else "wgmma"
+
+
+def k3_input(n, k, c):
+    """Consistent K3 input vals [PL, n, C]: K2 of k2_input's columns."""
+    from honeybadgermpc_tpu_torch.ops import fused_open as fo
+    pts, cols = k2_input(n, k, c)
+    vals, errs = fo.open_k2(cols, pts, k)
+    if errs.any():
+        raise SystemExit(f"K3 input not consistent at {(n, k, c)}")
+    return pts, vals
+
+
+def time_r2_r18(tag, work):
+    """Rows 2 and 18 of the tree this process imports, through its
+    wrappers (the kernel's device time from the profiler): the sampler at
+    SEG x T and K3 at K3_SHAPES, honest and with faults, on their
+    knock-out variants; K3 on the wgmma core also at every column-group
+    count of K3_GROUPS. The final variants are held against the plain
+    versions."""
+    import torch
+    import honeybadgermpc_tpu_torch as pkg
+    from honeybadgermpc_tpu_torch import _build
+    from honeybadgermpc_tpu_torch.ops import field_kernels as fk
+    from honeybadgermpc_tpu_torch.ops import fused_open as fo
+    dev = torch.device("cuda")
+    real = _build.lib()
+    csrc = os.path.join(os.path.dirname(pkg.__file__), "csrc")
+    libs, core = build_r2_r18_variants(csrc, work)
+    for (kind, name), var in libs.items():
+        if kind != "rand":
+            continue
+        _build._lib = _LibProxy(real, var, ("hb_rand_limbs",))
+        run = lambda: fk._rand_limbs_cuda((1, 2), RAND_NUMEL, dev)  # noqa
+        if name == "final" and not torch.equal(
+                run(), fk._rand_limbs_plain((1, 2), RAND_NUMEL, dev)):
+            raise SystemExit(f"sampler final != plain ({tag})")
+        ms, by = kernel_ms(run, 50, "rand_limbs")
+        wave = None
+        if hasattr(var, "hb_rand_limbs_wave"):      # the word kernel's grid
+            var.hb_rand_limbs_wave.restype = ctypes.c_longlong
+            wave = var.hb_rand_limbs_wave()
+        say(kernel="row2", tree=tag, variant=name, numel=RAND_NUMEL, ms=ms,
+            timed_by=by, elements_per_wave=wave)
+        if name == "final":
+            say(kernel="row2", tree=tag, variant=name,
+                sass=sass_mix(var._name, "rand_limbs_kernel"))
+    _build._lib = real
+    split = getattr(fo, "_gemm_split", None)
+    for n, k, c in K3_SHAPES:
+        pts, vals = k3_input(n, k, c)
+        bad = vals.clone()
+        bad[5, n - 1, c // 2] ^= 0x100
+        bad[0, k, 0] ^= 1
+        from honeybadgermpc_tpu_torch.ops import band_gemm as bg
+        fit = [] if split is None else [
+            (mb, g) for mb, g in K3_PLANS
+            if bg.smem_bytes(k, mb) <= bg.SMEM_MAX
+            and g <= max(1, -(-n // 2) // bg.consumers(mb))]
+        for (kind, name), var in libs.items():
+            if kind != "k3":
+                continue
+            _build._lib = _LibProxy(real, var, ("hb_open_fused_k3",))
+            plans = [None]
+            if fit and name == "final":
+                plans += fit
+            elif fit and name in ("slots4", "ks8"):    # deeper band rings
+                plans += [(1, 2)]
+            elif fit:
+                plans += [(1, 1)]
+            for groups in plans:
+                if groups is not None:
+                    fo._gemm_split = (lambda p: lambda kk, nl, m, nsm=132:
+                                      p)(groups)
+                for case, x in (("honest", vals), ("faulty", bad)):
+                    run = lambda: fo._open_k3_cuda(x, pts, k)  # noqa
+                    try:
+                        run()
+                    except RuntimeError as exc:   # a ring past the smem
+                        say(kernel="row18", tree=tag, variant=name,
+                            n=n, k=k, C=c, forced=groups, failed=str(exc))
+                        break
+                    if name == "final":
+                        sec, errs = run()
+                        want = fo._k3_plain(x, pts, k)
+                        if not (torch.equal(sec, want[0])
+                                and torch.equal(errs, want[1])):
+                            raise SystemExit(f"K3 final != plain at "
+                                             f"{(n, k, c, groups)} ({tag})")
+                    elif case == "faulty":
+                        continue
+                    ms, by = kernel_ms(run, 20, "open_fused_k3")
+                    say(kernel="row18", tree=tag, variant=name, core=core,
+                        case=case, n=n, k=k, C=c,
+                        forced=groups,
+                        plan=(None if split is None else
+                              list(split(k, c, n,
+                                         torch.cuda.get_device_properties(
+                                             dev).multi_processor_count))),
+                        ms=ms, timed_by=by)
+                if split is not None:
+                    fo._gemm_split = split
+        del vals, bad
+        torch.cuda.empty_cache()
+    _build._lib = real
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", help="another checkout of the port to time "
@@ -958,6 +1212,9 @@ def main():
     ap.add_argument("--mxu-only", action="store_true",
                     help="rows 13 and 14 alone: this tree's knock-outs and, "
                     "with --parent, that tree's")
+    ap.add_argument("--sampler-k3", action="store_true",
+                    help="rows 2 and 18 alone (the sampler and K3): this "
+                    "tree's knock-outs and, with --parent, that tree's")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -965,7 +1222,11 @@ def main():
     work = os.path.join(ROOT, "honeybadgermpc_tpu_torch", "build",
                         "band_core_study")
     if args.tree_only:
-        if args.mxu_only:
+        if args.sampler_k3:
+            time_r2_r18(args.tree_only, os.path.join(
+                os.getcwd(), "honeybadgermpc_tpu_torch", "build",
+                "r2_r18_study_" + args.tree_only))
+        elif args.mxu_only:
             time_mxu(args.tree_only, os.path.join(
                 os.getcwd(), "honeybadgermpc_tpu_torch", "build",
                 "mxu_study_" + args.tree_only))
@@ -980,7 +1241,8 @@ def main():
 
     def other(tag):
         env = dict(os.environ, PYTHONPATH=os.path.abspath(args.parent))
-        extra = ", '--mxu-only'" if args.mxu_only else ""
+        extra = (", '--mxu-only'" if args.mxu_only else
+                 ", '--sampler-k3'" if args.sampler_k3 else "")
         subprocess.run([sys.executable, "-c",
                         "import runpy, sys; sys.argv = ['study', "
                         f"'--tree-only', '{tag}'{extra}]; "
@@ -991,7 +1253,9 @@ def main():
     if args.parent:
         other("parent")
     sys.path.insert(0, ROOT)
-    if args.mxu_only:
+    if args.sampler_k3:
+        time_r2_r18("this", os.path.join(work, "r2_r18"))
+    elif args.mxu_only:
         time_mxu("this", os.path.join(work, "mxu"))
     else:
         time_tree("this")

@@ -42,20 +42,24 @@ M32 = 0xFFFFFFFF
 JUNK = 0x5A5A5A5A          # what an output holds before the kernel writes
 
 
-def _walk_tiles(tiles, band, ncp, k, m):
+def _walk_tiles(tiles, band, ncp, k, m, order=None):
     """Every tile of `tiles`, read through the kernel's B descriptor, is
-    the reference band's rows (diagonal r of column col, digits s at
-    column s*k + kk); columns m.. of an odd last tile are zero."""
+    the reference band's rows (diagonal r of kernel column col, which is
+    reference column col or order[col]; digits s at column s*k + kk);
+    columns m.. of an odd last tile are zero."""
     colt, diag = bg._tile_rows()
     ntiles = -(-m // 2)
     assert tiles.shape == (ntiles, k, TILE)
+    ref = np.arange(2 * ntiles) if order is None else \
+        np.array(list(order) + [0] * (2 * ntiles - m))
     for ct in range(ntiles):
         cols = 2 * ct + colt
-        want_rows = diag * ncp + cols
+        want_rows = diag * ncp + ref[cols]
         for kk in range(k):
             got = bg._desc_walk(tiles[ct, kk], 0, 1024, 128, 64)
-            assert np.array_equal(got, band[want_rows, kk::k][:, :32]), \
-                (ct, kk)
+            want = band[want_rows, kk::k][:, :32].copy()
+            want[cols >= m] = 0
+            assert np.array_equal(got, want), (ct, kk)
             assert not got[cols >= m].any()
 
 
@@ -63,17 +67,17 @@ def _walk_tiles(tiles, band, ncp, k, m):
 def test_k2_tiles_walked_by_their_descriptor_are_the_reference_band(k):
     """K2's band at n=64 in band_gemm tiles (nv+1 = 43 columns at k=22: a
     half-empty last tile; 22 at k=43) is the reference's R1 band; the
-    per-column check runs on the same tiles, so K2's stage carries no
-    mma.sync fragment band any more (only K3's does)."""
+    per-column check runs on the same tiles. Every stage of the open runs
+    on the core: the kernel bands are tiles only (no mma.sync fragment
+    band), K1's the reference's encode band."""
     n = 64
     points = tuple(range(1, n + 1))
     band, ncp = ref_fo._bands_np(points, k)[1]
-    frag, tiles = fo._open_kernel_bands(points, k)[1]
-    _walk_tiles(tiles, band[0], ncp, k, n - k + 1)
-    assert frag is None
-    assert fo._open_kernel_bands(points, k)[2][1] is None
+    bands = fo._open_kernel_bands(points, k)
+    assert len(bands) == 3
+    _walk_tiles(bands[1], band[0], ncp, k, n - k + 1)
     enc, n1 = ref_fo._bands_np(points, k)[0]
-    _walk_tiles(fo._open_kernel_bands(points, k)[0][1], enc[0], n1, k, n)
+    _walk_tiles(bands[0], enc[0], n1, k, n)
 
 
 @pytest.mark.parametrize("n,k", [(64, 22), (64, 43), (8, 3), (8, 2)])
@@ -86,7 +90,7 @@ def test_direct_tiles_are_k2s_tiles(n, k):
     reference's R1 band (at n=64 the K2 test above walks the same bytes)."""
     points = tuple(range(1, n + 1))
     tiles = fod._direct_tiles(points, k)
-    assert np.array_equal(tiles, fo._open_kernel_bands(points, k)[1][1])
+    assert np.array_equal(tiles, fo._open_kernel_bands(points, k)[1])
     if n == 8:
         band, ncp = ref_fo._bands_np(points, k)[1]
         _walk_tiles(tiles, band[0], ncp, k, n - k + 1)
@@ -124,22 +128,29 @@ def test_gemm_band_index_relays_a_band_into_the_tiles(ncp, k, rowlen):
 
 # -- a plain model of the core's epilogue ------------------------------------
 
-def _owners(nlanes, m, mb):
-    """The consumer threads of band_gemm_body<mb> as it splits the work:
-    per thread (its lanes, one per 64-lane block; the columns of its tiles;
-    its part among the threads of its lanes; their count)."""
+def _owners(nlanes, m, mb, groups=1):
+    """The consumer threads of band_gemm_body<mb> as it splits the work,
+    in order (so 32 consecutive threads are one warp): per thread (its
+    lanes, one per 64-lane block; the columns of its tiles; its part among
+    the threads of its lanes; their count). With column groups (SPLIT),
+    block b serves lane block b // groups and the group b % groups of
+    ceil(tiles / groups) consecutive tiles."""
     tm, cons = 64 * mb, bg.consumers(mb)
     ntiles = -(-m // 2)
+    tpg = -(-ntiles // groups)
     for blk in range(-(-nlanes // tm)):
-        for wgi in range(cons):
-            for wl in range(4):
-                for laneid in range(32):
-                    g, tg = laneid >> 2, laneid & 3
-                    hf, cl = tg & 1, tg >> 1
-                    lanes = [blk * tm + 64 * b + 16 * wl + g + 8 * hf
-                             for b in range(mb)]
-                    cols = [2 * ct + cl for ct in range(wgi, ntiles, cons)]
-                    yield lanes, cols, wgi * 2 + cl, cons * 2
+        for grp in range(groups):
+            t0, t1 = grp * tpg, min(grp * tpg + tpg, ntiles)
+            for wgi in range(cons):
+                for wl in range(4):
+                    for laneid in range(32):
+                        g, tg = laneid >> 2, laneid & 3
+                        hf, cl = tg & 1, tg >> 1
+                        lanes = [blk * tm + 64 * b + 16 * wl + g + 8 * hf
+                                 for b in range(mb)]
+                        cols = [2 * ct + cl
+                                for ct in range(t0 + wgi, t1, cons)]
+                        yield lanes, cols, wgi * 2 + cl, cons * 2
 
 
 def _results(flat, mp, band, ncp):
@@ -160,25 +171,30 @@ def _results(flat, mp, band, ncp):
     return words.to(torch.int64) & M32
 
 
-def _compare_model(flat, mp, band, ncp, nv, mb, charge):
+def _compare_model(flat, mp, band, ncp, nv, mb, charge, ns=1, groups=1):
     """CompareEpi on the core as the kernel runs it, for the lanes of the
     map mp (every caller's map puts operand i, word w of lane g at
     flat[w*sw + i*si + g]): column col < nv compared with the words fetched
-    at operand k + col, column nv stored to vals [PL, nlanes] at the lane,
-    column nv+1 nothing. The charge: "group" (K2) and "lane" (the check) add
-    a thread's count of a lane to errs[g // C] or errs[g] in finish, one
+    at operand k + col, columns nv .. nv+ns-1 stored to vals [PL, ns,
+    nlanes] at the lane (K2, the check, the direct open: ns = 1, vals
+    [PL, nlanes]), a column past them nothing; with `groups` column groups
+    over blocks. The charge: "group" (K2) and "lane" (the check) add a
+    thread's count of a lane to errs[g // C] or errs[g] in finish, one
     atomic when not 0; "source" (the direct open) counts the 16 lanes of a
     warp's column half together (key: the lane's 16-lane group of its warp
     and 64-lane block, and the column) and adds the count to errs[col] in
-    one atomic when not 0. -> (vals int32 [PL * nlanes], errs int64 dict
-    index -> count, the number of atomics). vals starts as junk, so a word
-    nobody writes shows."""
+    one atomic when not 0; "total" (K3) sums the counts of a warp's 32
+    threads for each of their 64-lane blocks in finish and adds the sum to
+    errs[0] in one atomic when not 0. -> (vals int32 [PL * ns * nlanes],
+    errs int64 dict index -> count, the number of atomics). vals starts as
+    junk, so a word nobody writes shows."""
     nlanes, C, sw, _, _, si, k = mp
     words = _results(flat, mp, band, ncp)
-    vals = torch.full((8 * nlanes,), JUNK, dtype=torch.int64)
+    vals = torch.full((8 * ns * nlanes,), JUNK, dtype=torch.int64)
     errs, warp, atomics = {}, {}, 0
-    for lanes, tcols, _, _ in _owners(nlanes, nv + 1, mb):
-        for g in lanes:
+    for th, (lanes, tcols, _, _) in enumerate(
+            _owners(nlanes, nv + ns, mb, groups)):
+        for b, g in enumerate(lanes):
             bad = 0
             for col in tcols:
                 miss = False
@@ -186,21 +202,25 @@ def _compare_model(flat, mp, band, ncp, nv, mb, charge):
                     recv = flat[[w * sw + (k + col) * si + g
                                  for w in range(8)]]
                     miss = bool((words[:, col, g] != recv).any())
-                elif g < nlanes and col == nv:
-                    vals[[w * nlanes + g for w in range(8)]] = words[:, col, g]
+                elif g < nlanes and col < nv + ns:
+                    vals[[(w * ns + col - nv) * nlanes + g
+                          for w in range(8)]] = words[:, col, g]
                 if charge == "source":
                     key = (g // 16, col)
                     warp[key] = warp.get(key, 0) + miss
                 bad += miss
-            if charge != "source" and bad:
+            if charge == "total":
+                warp[th // 32, b] = warp.get((th // 32, b), 0) + bad
+            elif charge != "source" and bad:
                 at = g // C if charge == "group" else g
                 errs[at] = errs.get(at, 0) + bad
                 atomics += 1
-    for (_, col), cnt in warp.items():
+    for key, cnt in warp.items():
         if cnt:
-            errs[col] = errs.get(col, 0) + cnt
+            at = 0 if charge == "total" else key[1]
+            errs[at] = errs.get(at, 0) + cnt
             atomics += 1
-    return _signed(vals, (8 * nlanes,)), errs, atomics
+    return _signed(vals, (8 * ns * nlanes,)), errs, atomics
 
 
 def _k2_model(cols, points, k, mb):
@@ -291,6 +311,118 @@ def test_k2_compare_and_count_model_is_k2_plain(n, k, C, mb):
     assert torch.equal(vals, want_vals)
     assert torch.equal(errs, want_errs)
     assert errs.tolist() == [1, 1] + [0] * (n - 3) + [1]
+
+
+# -- K3 on the core: the stored range, the one count, column groups --------
+
+@pytest.mark.parametrize("n,k", [(64, 22), (64, 43), (8, 3)])
+def test_k3_tiles_walked_by_their_descriptor_are_the_reference_band(n, k):
+    """K3's band in band_gemm tiles, walked by the B descriptor, is the
+    reference's R2 band [Minv | lam(points[k:])] with its columns in
+    _k3_columns order: the nv compare columns first, then the k
+    coefficients (32 tiles at n=64; at n=8 four, k = 3 coefficient
+    columns after 5 compare columns)."""
+    points = tuple(range(1, n + 1))
+    band, ncp = ref_fo._bands_np(points, k)[2]
+    order = fo._k3_columns(n, k)
+    assert sorted(order) == list(range(n)) and order[0] == k
+    _walk_tiles(fo._open_kernel_bands(points, k)[2], band[0], ncp, k, n,
+                order=order)
+
+
+def _vals_of_polys(n, k, C, seed):
+    """Consistent K3 input vals [PL, n, C]: chunk c holds the values at the
+    points 1..n of a random polynomial of degree k-1 (its coefficients as
+    ints [C][k])."""
+    rng = np.random.default_rng(seed)
+    coef = [[int.from_bytes(rng.bytes(40), "little") % P for _ in range(k)]
+            for _ in range(C)]
+    ys = np.array([[sum(a * pow(x, e, P) for e, a in enumerate(cf)) % P
+                    for cf in coef] for x in range(1, n + 1)], object)
+    words = np.stack([(ys >> (32 * w)) & M32 for w in range(8)])
+    return torch.from_numpy(words.astype(np.uint32).view(np.int32)
+                            .copy()), coef
+
+
+def _k3_model(vals, points, k, mb, groups):
+    """hb_open_fused_k3 as the kernel runs it: one group of C lanes (lane
+    c), operand i at vals[w, i, c], the R2 band's columns in _k3_columns
+    order, CompareEpi charged to errs[0] (the warp's sum, one atomic per
+    warp and 64-lane block), the k coefficient columns stored to sec [PL,
+    k, C], `groups` column groups. -> (sec, errs int32 [1], atomics)."""
+    _, n, C = vals.shape
+    mp = (C, C, n * C, 0, 1, C, k)
+    flat = vals.reshape(-1).to(torch.int64) & M32
+    band, ncp = fo._bands_np(points, k)[2]
+    order = list(fo._k3_columns(n, k))
+    band = band[0].reshape(32, ncp, -1)[:, order].reshape(32 * n, -1)
+    sec, errs, atomics = _compare_model(flat, mp, band, n, n - k, mb,
+                                        "total", ns=k, groups=groups)
+    return (sec.reshape(8, k, C),
+            torch.tensor([errs.get(0, 0)], dtype=torch.int32), atomics)
+
+
+@pytest.mark.parametrize("n,k,C,mb,groups", [
+    (8, 3, 40, 1, 1), (16, 6, 70, 1, 2), (9, 4, 33, 4, 2),
+    (16, 5, 130, 2, 2), (64, 22, 70, 1, 2)])
+def test_k3_compare_and_count_model_is_k3_plain(n, k, C, mb, groups):
+    """K3's epilogue on the core, modelled: ragged 64-lane blocks (C = 40,
+    70, 33, 130), an odd column count (n = 9: a half-empty last tile),
+    column groups (two groups of 4, 3 + 2, 4 and 16 tiles). Honest: the
+    secrets equal _k3_plain's and are the polynomials' coefficients
+    (Python ints), no count, no atomic. Faults in the last compare column
+    at two lanes of one warp, in the first at the last lane and in an
+    interpolating operand (every compare column of its lane): the count
+    is _k3_plain's, 3 + (n - k), in one atomic per warp and 64-lane
+    block that saw one."""
+    points = tuple(range(1, n + 1))
+    vals, coef = _vals_of_polys(n, k, C, 11 * n + k)
+    sec, errs, atomics = _k3_model(vals, points, k, mb, groups)
+    want_sec, want_errs = fo._k3_plain(vals, points, k)
+    assert torch.equal(sec, want_sec)
+    assert torch.equal(errs, want_errs) and errs.tolist() == [0]
+    assert atomics == 0
+    got = (sec.to(torch.int64) & M32).numpy().astype(object)
+    for c in (0, C // 2, C - 1):
+        assert [sum(int(got[w, i, c]) << (32 * w) for w in range(8))
+                for i in range(k)] == coef[c]
+    bad = vals.clone()
+    bad[3, n - 1, 0] ^= 0x10                  # last compare column, lane 0
+    bad[0, n - 1, 3] ^= 1                     # ... and lane 3, one warp
+    bad[7, k, C - 1] ^= -(1 << 31)            # first compare column
+    bad[2, 0, C // 2] ^= 0x100                # an interpolating operand
+    sec, errs, atomics = _k3_model(bad, points, k, mb, groups)
+    want_sec, want_errs = fo._k3_plain(bad, points, k)
+    assert torch.equal(sec, want_sec)
+    assert torch.equal(errs, want_errs)
+    assert errs.tolist() == [3 + n - k]
+    assert 1 <= atomics <= 3 + n - k
+
+
+def test_k3_column_groups_fill_one_wave_and_the_core_kernels_keep_one():
+    """K3 at the programs' shapes (n = 64: 32 tiles; C = 7,820 and 4,001
+    chunks) runs 128-lane blocks and splits its tiles into 2 and 4 groups:
+    124 and 128 blocks, one wave on 132 SMs (a second wave lost on the
+    card). Few chunks take the most groups that keep a tile per consumer
+    warpgroup; k = 64's 128-lane planes do not fit, so 64-lane blocks.
+    The eight kernels already on the core, at their main-path shapes in
+    chip_smoke.py, fill the card with their lane blocks: their plan is
+    _gemm_plan's, one group."""
+    for k, C, groups, blocks in ((22, 7820, 2, 124), (43, 4001, 4, 128)):
+        assert bg._gemm_split(k, C, 64) == (2, groups)
+        assert -(-C // 128) * groups == blocks <= 132
+        assert bg.smem_bytes(k, 2) <= bg.SMEM_MAX
+    assert bg._gemm_split(22, 31, 64) == (2, 10)
+    assert bg._gemm_split(3, 5, 8) == (2, 1)          # four tiles
+    assert bg._gemm_split(64, 1000, 64) == (1, 8)
+    lanes = 64 * 4096
+    shapes = [(22, 16896, 64), (22, 16896, 43), (43, 43 * 392, 22),
+              (22, 64 * 7820, 64), (43, 64 * 4001, 64), (22, 64 * 7820, 43),
+              (43, 64 * 4001, 22), (22, 48 * 4096, 43), (43, 48 * 4096, 22),
+              (22, lanes, 64), (43, lanes, 64), (64, lanes, 64),
+              (64, lanes, 23)]
+    for k, nl, m in shapes:
+        assert bg._gemm_split(k, nl, m) == (bg._gemm_plan(k, nl), 1)
 
 
 def _direct_faults(packed, n, k):
