@@ -40,7 +40,8 @@ Phases, each printing one JSON line; any failure exits non-zero (13 runs
 right after the offline kernels of phase 8, 18 and 19 right after 10):
   1 device    a CUDA card must be present; prints its name and power limit
   2 build     compile and load the nineteen kernels; ptxas registers
-              and spills of the kernels on the wgmma core
+              and spills of the kernels on the wgmma core, of the sampler
+              and of rows 7 and 12
   3 kernels   each kernel against its plain PyTorch version on the card,
               bit for bit, at small, unaligned and main-path shapes, with
               times and the computed bound; the sampler (row 2) at numel
@@ -59,7 +60,10 @@ right after the offline kernels of phase 8, 18 and 19 right after 10):
               the aggregated extraction (rows 4 and 5a, on the wgmma core)
               at n=8, t=2 and n=64, t=21 over 4096 slots, both degrees,
               also at every lane tile that fits, on outputs filled with
-              nonzero bytes
+              nonzero bytes; the packed finish (rows 7 and 8) at
+              [8, 3, 5, 77], [8, 7, 3, 43], [8, 1, 1, 127], [8, 1, 1, 1]
+              and [8, 64, 24, 4096], row 7's flat form unpadded and padded,
+              random operands and every operand at p - 1
   4 main      deal, pack and open every segment; nerr == 0; opened secrets
               against a Python-int Lagrange oracle; launch counters moved
   5 faults    a flipped word is detected and charged to the right party
@@ -76,7 +80,10 @@ right after the offline kernels of phase 8, 18 and 19 right after 10):
               shapes, a Python-int sample each, times and bounds; row 13
               (on the wgmma core) also at B = 1, 63, 65, 1031 and 49,152,
               k = 1, 27, 28, 32, 33, 55, 56 and 438, n = 4, 5, 8, 16, 43
-              and 64 (ROW13_EDGES)
+              and 64 (ROW13_EDGES); row 12 at its plan's split and at
+              every split (1-32 lanes per output) at B=64, k=22, n=43, and
+              at CIOS_EDGES (B = 1 to 1023, k = 1 to 3599), random and
+              every operand at p - 1
  12 robust open       honest: nerr == 0 and no Gao launch; 21 faulty
               parties: phase one sees them, the redo returns the honest
               secrets with nerr == 768*21 at every party, the other three
@@ -159,9 +166,11 @@ flop each), over the least number of instructions the function needs on
 kernel does both kinds of work (the sampler on the CUDA cores, the encode
 dot on the tensor cores); its operation time is the larger of the two. The
 packed finish functions are counted like the sampler; both come out bound
-by their bytes. So are the robust open's elementwise multiply and CIOS
-matmul (on 8 words of 32 bits) and the MXU epilogues (on the reference's
-16-bit carry-save limbs); the folded MXU kernel's int8 dot is counted as
+by their bytes. So are the robust open's elementwise multiply (on 8 words
+of 32 bits) and the MXU epilogues (on the reference's 16-bit carry-save
+limbs). The CIOS matmul is counted as one unreduced wide product per term
+and one reduction per output (CIOS_TERM_OPS, CIOS_OUTPUT_OPS) and comes
+out bound by its operations; the folded MXU kernel's int8 dot is counted as
 the scheme runs it (37 x 37 digit products per operand and output). The
 three-kernel open's dots are counted like the direct open's (32 diagonals
 x 32k digits per lane and column), K3 decoding once; the flat finish like
@@ -298,7 +307,12 @@ PLAIN_COUNTERS = {
 # reduction, 8 for m, 8 x 2 carries out, conditional subtract 8 + 8. A
 # modular add is 8 + 8 + 8.
 MONT_MUL_OPS = 2 * (8 * 8 * 2) + 8 + 16 + 16
-ADD_MOD_OPS = 24
+# Least per term of a CIOS matmul output: the 512-bit product added into an
+# unreduced wide sum, 8 rows x 2 chains x (8 multiply-adds + 1 carry add);
+# per output: one reduction of the sum (as much, and 8 for the m's), the
+# fold of the carry words (9) and five 9-word conditional subtracts (5 x 18)
+CIOS_TERM_OPS = 8 * 2 * (8 + 1)
+CIOS_OUTPUT_OPS = CIOS_TERM_OPS + 8 + 9 + 5 * 18
 # Least integer instructions per output element of the MXU epilogues on
 # 16-bit carry-save limbs (the reference's own fold): each diagonal pair
 # costs an add and a shift, its three chunks 6 operations and 3 adds; a
@@ -867,17 +881,20 @@ def compare_extract(dev, n, t, sp, key, cols):
 
 
 def compare_finish(dev, a, b, c, pad):
-    """mul_add_packed4 (4D and padded flat form) and sub_bcast_packed4 (its
-    minuend a prefix view of a longer tensor) against their plain versions."""
+    """mul_add_packed4 (4D and flat form, unpadded and padded) and
+    sub_bcast_packed4 (its minuend a prefix view of a longer tensor)
+    against their plain versions."""
     _, n, r, s_ = a.shape
     got = fk.mul_add_packed4(a, b, c)
     want = fk._mul_add_packed4_plain(a, b, c)
-    flat = fk.mul_add_packed4_flat(a, b, c, pad=pad)
     sync()
     check(torch.equal(got, want), f"mul_add_packed4 != plain at {a.shape}")
-    check(torch.equal(flat[:, :, :r * s_], want.reshape(PL, n, r * s_))
-          and not bool(flat[:, :, r * s_:].any()),
-          f"mul_add_packed4 padded form wrong at {a.shape} pad={pad}")
+    for pd in (0, pad):
+        flat = fk.mul_add_packed4_flat(a, b, c, pad=pd)
+        sync()
+        check(torch.equal(flat[:, :, :r * s_], want.reshape(PL, n, r * s_))
+              and not bool(flat[:, :, r * s_:].any()),
+              f"mul_add_packed4 flat form wrong at {a.shape} pad={pd}")
     err_ma = max_abs_err(got, want)
     long = torch.cat([got[:, 0].reshape(PL, r * s_),
                       got[:, 0].reshape(PL, r * s_)[:, :pad + 3]], dim=-1)
@@ -910,7 +927,19 @@ def phase_kernels_offline(dev):
     sm = keep_s[:, :3, :5, :77].contiguous()           # unaligned [8,3,5,77]
     e1, e2, _ = compare_finish(dev, sm, sm.flip(3), sm.flip(2), 7)
     err["mul_add_packed4"], err["sub_bcast_packed4"] = e1, e2
-    shapes.append("mul_add_packed4, sub_bcast_packed4 [8,3,5,77]")
+    shapes.append("mul_add_packed4, sub_bcast_packed4 [8,3,5,77] pad 0, 7")
+    # odd n and R*S, one party, one element, and every operand at p - 1
+    pm1 = torch.tensor(P_WORDS_SIGNED[1], dtype=torch.int32, device=dev)
+    for shape, pad in (((7, 3, 43), 1), ((1, 1, 127), 42), ((1, 1, 1), 0)):
+        x = keep_s[:, :shape[0], :shape[1], :shape[2]].contiguous()
+        e1, e2, _ = compare_finish(dev, x, x.flip(3), x.flip(1), pad)
+        full = pm1.reshape(PL, 1, 1, 1).expand(PL, *shape).contiguous()
+        e3, e4, _ = compare_finish(dev, full, full, full, pad)
+        err["mul_add_packed4"] = max(err["mul_add_packed4"], e1, e3)
+        err["sub_bcast_packed4"] = max(err["sub_bcast_packed4"], e2, e4)
+        shapes.append(f"mul_add_packed4, sub_bcast_packed4 [8,{shape[0]},"
+                      f"{shape[1]},{shape[2]}] pad 0, {pad}; and every "
+                      "operand at p - 1")
 
     # main-path width: n=64, t=21, all 4096 slots, both degrees
     key = (41, 42)
@@ -935,7 +964,7 @@ def phase_kernels_offline(dev):
     err["mul_add_packed4"] = max(err["mul_add_packed4"], e1)
     err["sub_bcast_packed4"] = max(err["sub_bcast_packed4"], e2)
     shapes.append(f"mul_add_packed4, sub_bcast_packed4 [8,{N},{N_OUTP},{KT}]"
-                  f" pad={pad}")
+                  f" pad 0, {pad}")
 
     n_out, n_outp = N_OUT, N_OUTP
     numel = N * N_OUTP * KT
@@ -1172,13 +1201,28 @@ def rand_field(dev, key, shape):
     return fk.rand_limbs(key, n, dev).reshape((L,) + tuple(shape))
 
 
+def nsm(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _signed_words(value, count, bits):
+    """`value`'s `count` little-endian words of `bits` bits as int32."""
+    words = [(value >> (bits * j)) & ((1 << bits) - 1) for j in range(count)]
+    return [w - (1 << 32) if w >= 1 << 31 else w for w in words]
+
+
+# p - 1 as 16 limbs and as 8 packed words (the worst-case operand)
+P_WORDS_SIGNED = (_signed_words(P - 1, L, 16), _signed_words(P - 1, PL, 32))
+
+
 def mont_mul_bound(numel):
     return bound(3 * 64 * numel, MONT_MUL_OPS * numel, INT32_OPS_PER_S)
 
 
 def cios_bound(b, k, n):
     return bound(64 * (b * k + k * n + b * n),
-                 b * k * n * (MONT_MUL_OPS + ADD_MOD_OPS), INT32_OPS_PER_S)
+                 b * n * (k * CIOS_TERM_OPS + CIOS_OUTPUT_OPS),
+                 INT32_OPS_PER_S)
 
 
 def fused2_bound(b, k, n, rounds):
@@ -1283,7 +1327,8 @@ def phase_kernels_robust(dev):
             timed_once(lambda: mxu._fused2_plain(a, wd, r)),
             fused2_bound(big, K, ncol, r))
 
-    # row 12: robust_open_single's decode at n=64
+    # row 12: robust_open_single's decode at n=64, at the plan's split and
+    # at every other
     w = dev_const(_decode_validate_np, (pts, K, False), dev)      # [L,22,43]
     a = rand_field(dev, (57, 1), (N, K))
     got = fk.fp_matmul_pallas(a, w)
@@ -1292,7 +1337,12 @@ def phase_kernels_robust(dev):
     check(torch.equal(got, want), f"fp_matmul_cios != plain at B={N} k={K}")
     check_oracle(got, a, w, "fp_matmul_cios")
     err["fp_matmul_cios"] = max_abs_err(got, want)
-    shapes.append(f"fp_matmul_cios B={N} k={K} n={N - K + 1}")
+    plan = fk._cios_plan(N, K, N - K + 1, nsm(dev))
+    for split in CIOS_SPLITS:
+        check(torch.equal(fk._fp_matmul_cios_cuda(a, w, split), want),
+              f"fp_matmul_cios != plain at B={N} k={K} split={split}")
+    shapes.append(f"fp_matmul_cios B={N} k={K} n={N - K + 1} (plan: split "
+                  f"{plan}; and splits {list(CIOS_SPLITS)})")
     times["fp_matmul_cios"] = (
         kernel_ms(lambda: fk.fp_matmul_pallas(a, w), 50,
                   "fp_matmul_cios_kernel"),
@@ -1306,13 +1356,21 @@ def phase_kernels_robust(dev):
                           mont._mont_mul_plain(a, b)),
               f"mont_mul != plain at {shape}")
         shapes.append(f"mont_mul {shape}")
-    for bb, k, n in ((13, 5, 7), (1, 3, 1), (N, N, N)):
+    for bb, k, n in CIOS_EDGES:
         a, v = rand_field(dev, (60, bb), (bb, k)), rand_field(dev, (61, n),
                                                                (k, n))
-        check(torch.equal(fk.fp_matmul_pallas(a, v),
-                          _matmul_kernel(a, v, mul=mont._mont_mul_plain)),
-              f"fp_matmul_cios != plain at {(bb, k, n)}")
-        shapes.append(f"fp_matmul_cios B={bb} k={k} n={n}")
+        top = torch.tensor(P_WORDS_SIGNED[0], dtype=torch.int32,
+                           device=dev).reshape(L, 1, 1)       # p - 1
+        for x, y, what in ((a, v, ""), (top.expand(L, bb, k).contiguous(),
+                                        top.expand(L, k, n).contiguous(),
+                                        ", every operand p - 1")):
+            got = fk.fp_matmul_pallas(x, y)
+            check(torch.equal(got,
+                              _matmul_kernel(x, y, mul=mont._mont_mul_plain)),
+                  f"fp_matmul_cios != plain at {(bb, k, n)}{what}")
+            check_oracle(got, x, y, "fp_matmul_cios")
+            shapes.append(f"fp_matmul_cios B={bb} k={k} n={n} (split "
+                          f"{fk._cios_plan(bb, k, n, nsm(dev))}){what}")
     for bb, k, n in ((130, 31, 8), (300, N, 8), (256, K, N)) + ROW13_EDGES:
         a, v = rand_field(dev, (62, bb), (bb, k)), rand_field(dev, (63, n),
                                                                (k, n))
@@ -1962,6 +2020,15 @@ def phase_program_fault(dev):
 
 # -- the coding layer: rows 13 and 14 against their plain versions ----------
 
+# (B, k, n): row 12 at the edges of its plan: one output, one term, a
+# contraction that is not a multiple of the split (23 at 16 lanes, 130 at
+# 32: two runs of 64 terms in some lanes), the largest batch it serves, and
+# k = 3599, which takes the CIOS route at every batch (32 lanes of 113
+# terms each, two runs per lane)
+CIOS_EDGES = ((1, 1, 1), (1, 22, 43), (64, 1, 43), (3, 23, 5), (13, 5, 7),
+              (1, 3, 1), (7, 130, 9), (N, N, N), (1023, 43, 8),
+              (1, 3599, 2))
+CIOS_SPLITS = (1, 2, 4, 8, 16, 32)
 # (B, k, n): rows 13 and 14 on the wgmma core at its edges: one lane, ragged
 # 64- and 128-lane blocks, a batch of blocks; one chunk of 16 operands and
 # the chunk edges (k = 32, 33), the REDC round edge (27, 28), the pair edge
@@ -2628,13 +2695,23 @@ def phase_per_column(dev, reps):
 
 
 def ptxas_core(log):
-    """Registers and spill bytes of the kernels on csrc/band_gemm.cuh and
-    of the sampler, from ptxas' report in the build log: {"<kernel>
-    lanes=<64 MB>" (rows 13 and 14: "<kernel> rounds=<r> pair=<0|1>"; the
-    sampler: "rand_limbs_kernel"): "<registers> registers, <stores>/<loads>
-    spill bytes"}."""
+    """Registers and spill bytes of the kernels on csrc/band_gemm.cuh, of
+    the sampler and of rows 7 and 12, from ptxas' report in the build log:
+    {"<kernel> lanes=<64 MB>" (rows 13 and 14: "<kernel> rounds=<r>
+    pair=<0|1>"; the sampler: "rand_limbs_kernel"; row 7:
+    "mul_add_packed4_kernel"; row 12: "fp_matmul_cios_kernel split=<S>"):
+    "<registers> registers, <stores>/<loads> spill bytes"}."""
     out, name = {}, None
     for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '_ZN4hb32(\d+)(\w+)'", ln)
+        if m:                                 # rows 7 and 12 (namespace hb32)
+            spills = "spills not reported"
+            kern, rest = m.group(2)[:int(m.group(1))], m.group(2)
+            split = re.match(r"ILi(\d+)E", rest[len(kern):])
+            name = (f"{kern} split={split.group(1)}"
+                    if kern == "fp_matmul_cios_kernel" and split else
+                    kern if kern == "mul_add_packed4_kernel" else None)
+            continue
         m = re.search(r"Compiling entry function '_ZN2hb(\d+)(\w+)'", ln)
         if m:                                 # hb::<name><MB>: mangled
             spills = "spills not reported"

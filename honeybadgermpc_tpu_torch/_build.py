@@ -111,7 +111,8 @@ def _declare(lib):
     lib.hb_mul_add_packed4.argtypes = [vp, vp, vp, vp, i64, i64, i64, vp]
     lib.hb_sub_bcast_packed4.argtypes = [vp, vp, vp, i64, i64, i64, vp]
     lib.hb_mont_mul.argtypes = [vp, vp, vp, i64, vp]
-    lib.hb_fp_matmul_cios.argtypes = [vp, vp, vp, i32, i32, i32, vp]
+    lib.hb_fp_matmul_cios.argtypes = [vp, vp, vp, i32, i32, i32, i32,
+                                      vp]
     lib.hb_mxu_fused2.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32, i32,
                                   i32, i32, vp]
     lib.hb_mxu_fused.argtypes = [vp, vp, vp, vp, i64, i32, i32, i32, i32,

@@ -31,7 +31,9 @@ behind ``montgomery.mont_mul`` on a CUDA tensor, ``csrc/mont_mul.cu``) and
 ``fp_matmul_pallas`` (``csrc/fp_matmul_cios.cu``, the route of
 ``fpmatmul.fp_matmul`` for batches below 1024 elements). Their plain
 versions are ``montgomery._mont_mul_plain`` and the scan
-``fpmatmul._matmul_kernel`` over it.
+``fpmatmul._matmul_kernel`` over it; ``_cios_words_model`` is the plain
+twin of the CIOS kernel's own arithmetic (the contraction split over
+``_cios_plan``'s lanes, unreduced wide sums, one reduction per run).
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ import torch
 from . import montgomery as mont
 from .band_gemm import _redc384_words
 from .fused_open import PL, _launch_stream, pack_limbs, unpack_limbs
-from .limbs import L, MASK, W
+from .limbs import L, MASK, P, W
 
 _TF_ROT_A = (13, 15, 26, 6)
 _TF_ROT_B = (17, 29, 16, 24)
@@ -204,16 +206,21 @@ def _mul_add_packed4_plain(a, b, c, chunk: int = 8):
 
 
 def _mul_add_packed4_cuda(a, b, c, pad: int):
-    """Launch csrc/packed_arith.cu::mul_add_packed4_kernel. The output
-    buffer is [PL, n, R*S + pad]; only its tail is zeroed here, the kernel
-    writes the rest."""
+    """Launch csrc/packed_arith.cu::mul_add_packed4_kernel (grid: R*S
+    elements along x, the n parties along y). The output buffer is
+    [PL, n, R*S + pad]; only its tail is zeroed here, the kernel writes the
+    rest."""
     global launches_mul_add4
     from .._build import lib
     _, n, R, S = a.shape
+    if n > 65535:
+        raise ValueError(f"{n} parties exceed the kernel's grid (65,535)")
     out = torch.empty((PL, n, R * S + pad), dtype=torch.int32,
                       device=a.device)
     if pad:
         out[:, :, R * S:] = 0
+    if n * R * S == 0:
+        return out
     rc = lib().hb_mul_add_packed4(a.data_ptr(), b.data_ptr(), c.data_ptr(),
                                   out.data_ptr(), n * R * S, R * S,
                                   R * S + pad, _launch_stream(a))
@@ -421,12 +428,186 @@ def mont_mul_pallas(a, b):
     return out
 
 
-def fp_matmul_pallas(a, v):
-    """a[L, B, k] @ v[L, k, n] -> [L, B, n] over GF(p), Montgomery form,
-    one CIOS product per term with modular k-accumulation:
-    csrc/fp_matmul_cios.cu on a CUDA tensor, the plain scan on a CPU
-    tensor."""
+# csrc/fp_matmul_cios.cu's launch constants and the plan's fill target
+CIOS_THREADS = 128          # threads per block
+CIOS_CHUNK = 64             # terms a lane sums before one reduction
+CIOS_WARPS_PER_SM = 4       # warps per SM the split aims for
+_CIOS_MAX_OUTPUTS = 2 ** 31 - CIOS_THREADS
+
+
+def _cios_plan(B: int, k: int, n: int, nsm: int = 132) -> int:
+    """The split of csrc/fp_matmul_cios.cu for a[L, B, k] @ v[L, k, n]:
+    lanes per output, the least power of two that puts CIOS_WARPS_PER_SM
+    warps on each of `nsm` SMs, at most 32 (a warp) and at most k rounded
+    up to a power of two (a lane without a term only adds 0). Any shape
+    with 0 < B*n < 2^31 - 128 has one; the grid is ceil(B*n*split / 128)
+    blocks."""
+    outputs = B * n
+    if not 0 < outputs < _CIOS_MAX_OUTPUTS or k < 0:
+        raise ValueError(f"no CIOS plan for B={B} k={k} n={n}")
+    split = 1
+    while split < min(32, k) \
+            and outputs * split < CIOS_WARPS_PER_SM * 32 * nsm:
+        split *= 2
+    return split
+
+
+def _mul_lo_hi(x, y):
+    """Low and high 32-bit halves of x*y for int64 tensors (or ints)
+    holding uint32 values, without overflowing int64."""
+    xl, xh = x & 0xFFFF, x >> 16
+    yl, yh = y & 0xFFFF, y >> 16
+    mid = xl * yh + xh * yl                   # < 2^33
+    low = xl * yl + ((mid & 0xFFFF) << 16)    # < 2^33
+    return low & _M32, xh * yh + (mid >> 16) + (low >> 32)
+
+
+def _chain(t, at, c, halves):
+    """t[at..at+7] += halves[0..7] as one carry chain (mad.lo/hi.cc,
+    madc); returns c plus the chain's carry out (addc)."""
+    cf = 0
+    for j in range(8):
+        s = t[at + j] + halves[j] + cf
+        t[at + j] = s & _M32
+        cf = s >> 32
+    return c + cf
+
+
+def _cond_sub9(x, d):
+    """x (9 words) - d where x >= d, else x; and whether it subtracted.
+    d: 9 ints."""
+    r, borrow = [], 0
+    for xi, di in zip(x, d):
+        v = xi - di - borrow
+        r.append(v & _M32)
+        borrow = (v < 0).to(torch.int64)
+    take = borrow == 0
+    return [torch.where(take, ri, xi) for ri, xi in zip(r, x)], take
+
+
+_P_WORDS = [(P >> (32 * j)) & _M32 for j in range(8)]
+
+
+def _add_mod_words(a, b):
+    """add_mod_w on lists of 8 word tensors: canonical (a + b) mod p."""
+    out, c = [], 0
+    for ai, bi in zip(a, b):
+        s = ai + bi + c
+        out.append(s & _M32)
+        c = s >> 32
+    return _cond_sub9(out + [c], _P_WORDS + [0])[0][:8]
+
+
+def _redc_wide_words(acc, cc):
+    """redc_wide's arithmetic: the wide sum (16 accumulator words, 9 carry
+    words at words 8-16) of at most CIOS_CHUNK terms -> 8 canonical words
+    of T * 2^-256 mod p. Checks the bounds the kernel relies on (the
+    reduction's words 0-7 zero, the carry words below 2^32, the result
+    below p after the five subtracts)."""
+    acc, cc = list(acc), list(cc)
+    for i in range(8):
+        m = (-acc[i]) & _M32                  # acc[i] * (2^32 - 1)
+        lo_hi = [_mul_lo_hi(m, pj) for pj in _P_WORDS]
+        cc[i] = _chain(acc, i, cc[i], [h[0] for h in lo_hi])
+        cc[i + 1] = _chain(acc, i + 1, cc[i + 1], [h[1] for h in lo_hi])
+        assert not bool((acc[i] != 0).any())
+    v, c = [], 0
+    for j in range(8):
+        s = acc[8 + j] + cc[j] + c
+        v.append(s & _M32)
+        c = s >> 32
+    v.append(cc[8] + c)
+    assert not any(bool((w >> 32).any()) for w in cc + [v[8]])
+    for s in range(4, -1, -1):                # V < 32p -> V mod p
+        v, _ = _cond_sub9(v, [((P << s) >> (32 * j)) & _M32
+                              for j in range(9)])
+    _, ge_p = _cond_sub9(v, _P_WORDS + [0])
+    assert not bool(ge_p.any()), "reduced sum not below p"
+    return v[:8]
+
+
+def _cios_words_model(a, v, split: int):
+    """Plain twin of csrc/fp_matmul_cios.cu's arithmetic on int64 words
+    (CPU): a[L, B, k] @ v[L, k, n] int32 limbs -> [L, B, n]. Lane s of
+    an output's `split` lanes takes the terms s, s + split, ...; it sums
+    each run of CIOS_CHUNK of them unreduced in 30 columns of 16 bits
+    (a's limb i times v's word j into column i + 2j, mac_cols), folds the
+    columns into 17 words and reduces each run once (redc_cols,
+    _redc_wide_words), adds the runs mod p; the lanes then combine in the
+    xor butterfly. Lanes and runs are tensor axes here, the terms of a run
+    a loop. Checks the bounds the kernel relies on."""
+    _, B, k = a.shape
+    n = v.shape[2]
+    xa = a.to(torch.int64)                            # [16, B, k] limbs
+    yv = pack_limbs(v).to(torch.int64) & _M32         # [8, k, n]
+    per_lane = -(-k // split)
+    runs = max(1, -(-per_lane // CIOS_CHUNK))
+    lane = torch.arange(split).reshape(split, 1)
+    run = torch.arange(runs).reshape(1, runs)
+    cols = torch.zeros((30, B, n, split, runs), dtype=torch.int64)
+    for t in range(CIOS_CHUNK):
+        kk = lane + split * (run * CIOS_CHUNK + t)    # [split, runs]
+        live = kk < k
+        if not bool(live.any()):
+            break
+        kc = kk.clamp(max=max(k - 1, 0))
+        x = torch.where(live, xa[:, :, kc], 0)[:, :, None]     # [16,B,1,s,r]
+        for j in range(8):
+            y = torch.where(live[..., None], yv[j][kc], 0).permute(2, 0, 1)
+            cols[2 * j:2 * j + 16] += x * y[None, None]
+    assert not bool((cols >> 57).any()), "a column passed 2^57"
+    acc, carry = [], 0
+    for w in range(16):                               # redc_cols' fold
+        hi = cols[2 * w + 1] if 2 * w + 1 < 30 else 0
+        lo = cols[2 * w] if 2 * w < 30 else 0
+        s = lo + ((hi & 0xFFFF) << 16) + carry
+        acc.append(s & _M32)
+        carry = (s >> 32) + (hi >> 16)
+    zero = torch.zeros_like(cols[0])
+    part = _redc_wide_words(acc, [zero] * 8 + [zero + carry])
+    total = [torch.zeros((B, n, split), dtype=torch.int64)] * 8
+    for r in range(runs):
+        total = _add_mod_words(total, [w[..., r] for w in part])
+    off = split // 2
+    while off:                                        # the butterfly
+        idx = torch.arange(split) ^ off
+        total = _add_mod_words(total, [w[..., idx] for w in total])
+        off //= 2
+    for w in total:
+        assert bool((w == w[..., :1]).all()), "lanes disagree"
+    words = torch.stack([w[..., 0] for w in total])   # [8, B, n]
+    limbs = torch.stack([words & 0xFFFF, words >> 16], dim=1)
+    return limbs.reshape(L, B, n).to(torch.int32)
+
+
+def _fp_matmul_cios_cuda(a, v, split=None):
+    """Launch csrc/fp_matmul_cios.cu at `split` lanes per output (default:
+    _cios_plan's)."""
     global launches_matmul
+    from .._build import lib
+    _, B, k = a.shape
+    n = v.shape[2]
+    out = torch.empty((L, B, n), dtype=torch.int32, device=a.device)
+    if B * n == 0:
+        return out
+    if split is None:
+        split = _cios_plan(B, k, n, torch.cuda.get_device_properties(
+            a.device).multi_processor_count)
+    a, v = a.contiguous(), v.contiguous()
+    rc = lib().hb_fp_matmul_cios(a.data_ptr(), v.data_ptr(), out.data_ptr(),
+                                 B, k, n, split, _launch_stream(a))
+    launches_matmul += 1
+    if rc != 0:
+        raise RuntimeError(
+            f"fp_matmul_cios kernel launch failed: CUDA error {rc}")
+    return out
+
+
+def fp_matmul_pallas(a, v):
+    """a[L, B, k] @ v[L, k, n] -> [L, B, n] over GF(p), Montgomery form:
+    csrc/fp_matmul_cios.cu on a CUDA tensor (the contraction split over
+    _cios_plan's lanes per output), the plain scan of mont_mul and add_mod
+    on a CPU tensor."""
     _check_limbs(a, "a")
     _check_limbs(v, "v")
     if a.dim() != 3 or v.dim() != 3 or a.shape[2] != v.shape[1] \
@@ -436,19 +617,4 @@ def fp_matmul_pallas(a, v):
     if not a.is_cuda:
         from .fpmatmul import _matmul_kernel
         return _matmul_kernel(a, v, mul=mont._mont_mul_plain)
-    from .._build import lib
-    _, B, k = a.shape
-    n = v.shape[2]
-    if B > 4 * 65535:
-        raise ValueError(f"batch {B} exceeds the kernel's grid")
-    out = torch.empty((L, B, n), dtype=torch.int32, device=a.device)
-    if B * n == 0:
-        return out
-    a, v = a.contiguous(), v.contiguous()
-    rc = lib().hb_fp_matmul_cios(a.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                 B, k, n, _launch_stream(a))
-    launches_matmul += 1
-    if rc != 0:
-        raise RuntimeError(
-            f"fp_matmul_cios kernel launch failed: CUDA error {rc}")
-    return out
+    return _fp_matmul_cios_cuda(a, v)

@@ -2,7 +2,7 @@
 16, 17 and 18 of PERF.md), and the field sampler's (row 2).
 
     python3 honeybadgermpc_tpu_torch/tools/band_core_study.py [--parent DIR]
-        [--mxu-only | --sampler-k3]
+        [--mxu-only | --sampler-k3 | --finish-cios]
 
 Needs one CUDA card and nvcc. Builds knock-out variants of
 ``csrc/band_gemm.cuh`` (patched copies under the package's build
@@ -77,6 +77,22 @@ final also at every (lane tile, column groups) of K3_PLANS that fits,
 and slots4 / ks8 (deeper band rings: 4 slots, 8 k-steps per slot) where
 they fit. The final variants are held against the plain versions. With
 --parent the other tree is timed the same way before and after.
+
+Rows 7 and 12 (--finish-cios, time_r7_r12): the packed triple finish's
+mul_add_packed4 at [8, 64, 24, 4096] with the call's pad (37) and none,
+and the CIOS matmul at robust_open_single's B=64, k=22, n=43 and at
+R12_SHAPES, through the wrappers, the kernel's device time from the
+profiler, on knock-out variants of the checkout's sources: row 7 final,
+no_product (the words' xor for the Montgomery product) and, on the word
+kernel, store_only (no loads, no arithmetic); row 12 final and, on the
+split kernel, no_reduction (the column sums folded by xor, no
+reduction), no_butterfly (each lane stores its own sum) and
+loads_stores (no product, no reduction), each at the plan's split, and
+final and loads_stores also at every other split (1-32 lanes per
+output); the kernel before its redesign also no_product. ptxas' report of
+both final builds comes first. The final variants are held against the
+plain versions. With --parent the other tree is timed the same way
+before and after.
 """
 
 import argparse
@@ -1202,6 +1218,163 @@ def time_r2_r18(tag, work):
         torch.cuda.empty_cache()
     _build._lib = real
 
+# -- rows 7 and 12: the packed triple finish and the small-batch CIOS matmul --
+
+R7_SHAPE = (8, 64, 24, 4096)          # [PL, n, R, S]: the packed triple call
+R7_PADS = (37, 0)                     # the call's pad to 2t+1 = 43, and none
+# (B, k, n): robust_open_single's decode first, then one decode, a square
+# open at n = 64, a batch just under the MXU routes, and a contraction that
+# takes the CIOS route at every batch (57 runs of 64 terms at split 1)
+R12_SHAPES = ((64, 22, 43), (1, 22, 43), (64, 64, 64), (1000, 43, 64),
+              (1, 3599, 2))
+R12_SPLITS = (1, 2, 4, 8, 16, 32)
+
+
+def _finish_cios_patches(text):
+    """Knock-outs of row 7 (packed_arith.cu) and row 12 (fp_matmul_cios.cu)
+    as the checkout has them: the 16-bit row 7 and the one-thread-per-output
+    row 12 before their redesign, or the word kernels. -> {(row, variant):
+    (file, patches)}."""
+    r7, r12 = text["packed_arith.cu"], text["fp_matmul_cios.cu"]
+    jobs = {("row7", "final"): ("packed_arith.cu", []),
+            ("row12", "final"): ("fp_matmul_cios.cu", [])}
+    if "mont_mul16(la, lb, prod);" in r7:           # before the redesign
+        prod = ("  mont_mul16(la, lb, prod);",
+                "  for (int j = 0; j < L; ++j) prod[j] = la[j] ^ lb[j];")
+        jobs["row7", "no_product"] = ("packed_arith.cu", [prod])
+    else:
+        prod = ("  mont_mul_w(xa, xb, ab);",
+                "  for (int w = 0; w < NW; ++w) ab[w] = xa[w] ^ xb[w];")
+        store = ("CUT", "  uint32_t xa[NW], xb[NW], xc[NW], ab[NW], res[NW];",
+                 "  const size_t plane =",
+                 "  uint32_t res[NW];\n  for (int w = 0; w < NW; ++w) "
+                 "res[w] = static_cast<uint32_t>(g) + w;\n")
+        jobs["row7", "no_product"] = ("packed_arith.cu", [prod])
+        jobs["row7", "store_only"] = ("packed_arith.cu", [store])
+    if "mac_cols(cols, x, y);" in r12:               # the split kernel
+        loads = ("      mac_cols(cols, x, y);",
+                 "      for (int j = 0; j < NW; ++j) cols[j] ^= x[2 * j] ^ "
+                 "x[2 * j + 1] ^ y[j];")
+        redc = ("    redc_cols(cols, part);",
+                "    for (int w = 0; w < NW; ++w) part[w] = static_cast<"
+                "uint32_t>(cols[w] ^ (cols[NW + w] >> 7) ^ cols[2 * NW + w]"
+                " ^ cols[3 * NW + w]);")
+        fly = ("CUT", "#pragma unroll\n  for (int off = S / 2; off > 0;",
+               "  if (o0 >= outputs) return;", "")
+        jobs["row12", "no_reduction"] = ("fp_matmul_cios.cu", [redc])
+        jobs["row12", "no_butterfly"] = ("fp_matmul_cios.cu", [fly])
+        jobs["row12", "loads_stores"] = ("fp_matmul_cios.cu", [loads, redc])
+    else:
+        prod = ("      mont_mul_w(x, y, pr);",
+                "      for (int q = 0; q < NW; ++q) pr[q] = x[q] ^ y[q];")
+        jobs["row12", "no_product"] = ("fp_matmul_cios.cu", [prod])
+    return jobs
+
+
+def build_r7_r12_variants(csrc, work):
+    """Knock-out variants of rows 7 and 12 as the checkout whose kernel
+    sources are `csrc` has them, built in parallel. -> ({(row, variant):
+    CDLL}, the ptxas report of each final build)."""
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    text = {fn: open(os.path.join(csrc, fn)).read() for fn in os.listdir(csrc)
+            if fn.endswith((".cu", ".cuh"))}
+    procs = {}
+    for (row, name), (main, pset) in _finish_cios_patches(text).items():
+        d = os.path.join(work, f"{row}_{name}")
+        os.makedirs(d, exist_ok=True)
+        for fn, src in text.items():
+            with open(os.path.join(d, fn), "w") as f:
+                f.write(_patch(src, pset, f"{row} variant {name}")
+                        if fn == main else src)
+        so = os.path.join(d, "lib.so")
+        procs[row, name] = (so, subprocess.Popen(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+             "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o",
+             so, os.path.join(d, main)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs, ptxas = {}, {}
+    for key, (so, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"variant {key} does not build:\n{out}")
+        libs[key] = ctypes.CDLL(so)
+        if key[1] == "final":
+            ptxas[key[0]] = [ln.strip() for ln in out.splitlines()
+                             if "registers" in ln or "stack frame" in ln
+                             or "entry function" in ln]
+    return libs, ptxas
+
+
+def time_r7_r12(tag, work):
+    """Rows 7 and 12 of the tree this process imports, through its wrappers
+    (the kernel's device time from the profiler): row 7 at R7_SHAPE with
+    each pad, row 12 at R12_SHAPES, each on its knock-out variants, row 12's
+    split kernel (final and loads_stores) also at every split of
+    R12_SPLITS. The final variants are held against the plain versions."""
+    import torch
+    import honeybadgermpc_tpu_torch as pkg
+    from honeybadgermpc_tpu_torch import _build
+    from honeybadgermpc_tpu_torch.ops import field_kernels as fk
+    from honeybadgermpc_tpu_torch.ops import montgomery as mont
+    from honeybadgermpc_tpu_torch.ops.fpmatmul import _matmul_kernel
+    from honeybadgermpc_tpu_torch.ops.fused_open import pack_limbs
+    dev = torch.device("cuda")
+    real = _build.lib()
+    csrc = os.path.join(os.path.dirname(pkg.__file__), "csrc")
+    libs, ptxas = build_r7_r12_variants(csrc, work)
+    say(tree=tag, ptxas=ptxas)
+    pl, n, r, s_ = R7_SHAPE
+    numel = n * r * s_
+    x = [pack_limbs(fk.rand_limbs((71, i), numel, dev)).reshape(R7_SHAPE)
+         for i in range(3)]
+    for pad in R7_PADS:
+        for (row, name), var in libs.items():
+            if row != "row7":
+                continue
+            _build._lib = _LibProxy(real, var, ("hb_mul_add_packed4",))
+            run = lambda: fk.mul_add_packed4_flat(*x, pad=pad)  # noqa
+            if name == "final":
+                got = run()
+                want = fk._mul_add_packed4_plain(*x).reshape(pl, n, r * s_)
+                if not (torch.equal(got[:, :, :r * s_], want)
+                        and not bool(got[:, :, r * s_:].any())):
+                    raise SystemExit(f"row 7 final != plain at pad={pad} "
+                                     f"({tag})")
+            ms, by = kernel_ms(run, 20, "mul_add_packed4_kernel")
+            say(kernel="row7", tree=tag, variant=name, shape=list(R7_SHAPE),
+                pad=pad, ms=ms, timed_by=by)
+    _build._lib = real
+    del x
+    torch.cuda.empty_cache()
+    split_kernel = hasattr(fk, "_cios_plan")
+    nsm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for b, k, n in R12_SHAPES:
+        a = fk.rand_limbs((72, b + k), b * k, dev).reshape(16, b, k)
+        v = fk.rand_limbs((73, n + k), k * n, dev).reshape(16, k, n)
+        want = _matmul_kernel(a, v, mul=mont._mont_mul_plain)
+        plan = fk._cios_plan(b, k, n, nsm) if split_kernel else None
+        for (row, name), var in libs.items():
+            if row != "row12":
+                continue
+            _build._lib = _LibProxy(real, var, ("hb_fp_matmul_cios",))
+            splits = [None]
+            if split_kernel and name in ("final", "loads_stores"):
+                splits += [sp for sp in R12_SPLITS if sp != plan]
+            for sp in splits:
+                if sp is None:
+                    run = lambda: fk.fp_matmul_pallas(a, v)  # noqa
+                else:
+                    run = lambda sp=sp: fk._fp_matmul_cios_cuda(  # noqa
+                        a, v, sp)
+                if name == "final" and not torch.equal(run(), want):
+                    raise SystemExit(f"row 12 final != plain at "
+                                     f"{(b, k, n, sp)} ({tag})")
+                ms, by = kernel_ms(run, 50, "fp_matmul_cios_kernel")
+                say(kernel="row12", tree=tag, variant=name, B=b, k=k, n=n,
+                    split=plan if sp is None else sp, plan=sp is None,
+                    ms=ms, timed_by=by)
+        _build._lib = real
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1215,6 +1388,10 @@ def main():
     ap.add_argument("--sampler-k3", action="store_true",
                     help="rows 2 and 18 alone (the sampler and K3): this "
                     "tree's knock-outs and, with --parent, that tree's")
+    ap.add_argument("--finish-cios", action="store_true",
+                    help="rows 7 and 12 alone (the packed triple finish and "
+                    "the small-batch CIOS matmul): this tree's knock-outs "
+                    "and, with --parent, that tree's")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1222,7 +1399,11 @@ def main():
     work = os.path.join(ROOT, "honeybadgermpc_tpu_torch", "build",
                         "band_core_study")
     if args.tree_only:
-        if args.sampler_k3:
+        if args.finish_cios:
+            time_r7_r12(args.tree_only, os.path.join(
+                os.getcwd(), "honeybadgermpc_tpu_torch", "build",
+                "r7_r12_study_" + args.tree_only))
+        elif args.sampler_k3:
             time_r2_r18(args.tree_only, os.path.join(
                 os.getcwd(), "honeybadgermpc_tpu_torch", "build",
                 "r2_r18_study_" + args.tree_only))
@@ -1242,7 +1423,8 @@ def main():
     def other(tag):
         env = dict(os.environ, PYTHONPATH=os.path.abspath(args.parent))
         extra = (", '--mxu-only'" if args.mxu_only else
-                 ", '--sampler-k3'" if args.sampler_k3 else "")
+                 ", '--sampler-k3'" if args.sampler_k3 else
+                 ", '--finish-cios'" if args.finish_cios else "")
         subprocess.run([sys.executable, "-c",
                         "import runpy, sys; sys.argv = ['study', "
                         f"'--tree-only', '{tag}'{extra}]; "
@@ -1253,7 +1435,9 @@ def main():
     if args.parent:
         other("parent")
     sys.path.insert(0, ROOT)
-    if args.sampler_k3:
+    if args.finish_cios:
+        time_r7_r12("this", os.path.join(work, "r7_r12"))
+    elif args.sampler_k3:
         time_r2_r18("this", os.path.join(work, "r2_r18"))
     elif args.mxu_only:
         time_mxu("this", os.path.join(work, "mxu"))

@@ -24,7 +24,8 @@ MODULES = ("test_torch_slice_robust_open", "test_torch_rs_fnt",
            "test_torch_randousha_per_column", "test_torch_fp_matmul",
            "test_torch_slice_ntl", "test_torch_ntl",
            "test_torch_sqrt_mul_add", "test_torch_gao",
-           "test_torch_band_gemm_epilogues", "test_torch_mont_mul")
+           "test_torch_band_gemm_epilogues", "test_torch_mont_mul",
+           "test_torch_finish_cios")
 
 
 def golden(name):
