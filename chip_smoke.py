@@ -32,6 +32,12 @@ n=64, t=21:
     16,896 polynomials from 43 of 128 parties, and every ``ntl`` function,
     among them ``vandermonde_batch_evaluate`` of 1,024 polynomials with 512
     coefficients at 4 points (the fused 73-diagonal MXU kernel).
+  * the MPC runtime core and its models — ``MpcContext`` with the port's
+    dealer: Beaver and double-sharing multiplies of 65,536 shared values,
+    inversion and division, a multiply whose input shares 21 parties
+    falsify (the Gao redo), equality and less-than, ``refine_triples`` of
+    1,024 batches of 64 dirty triples, MiMC at bench_mimc's batch of 1,000
+    and the k = 1,024 butterfly network (100 rounds of 512 switches).
 
 The first run builds the kernels from ``honeybadgermpc_tpu_torch/csrc``
 into ``honeybadgermpc_tpu_torch/build``.
@@ -150,6 +156,30 @@ right after the offline kernels of phase 8, 18 and 19 right after 10):
               party 30 gives errs 1 in every real check column of its slot;
               the known-rho bypass passes the aggregated check and not the
               per-column one; ms per call, device-busy ms
+ 20 runtime    MpcContext at n=64, t=21 on the port's dealer (its draws and
+              encodes inside the phase), launch counts set to 0 just
+              before and read after the checked calls: Beaver and
+              double-sharing multiplies of B = 65,536 (every product
+              against Python ints, B preprocessed elements taken), invert
+              and divide at B = 4,096, one multiply of B = 220 with the
+              input shares of 21 parties replaced (the products right,
+              nerr_total an int32 [64] tensor with 10 x 21 at every
+              party), equality at B = 1,024 (half the pairs equal) and
+              less_than at B = 256 against Python ints, refine_triples on
+              1,024 batches of 64 dirty triples (c = a*b for all 44,032
+              outputs); the direct open, the sampler, the band encode,
+              mont_mul and an fp_matmul route launched, no plain version
+              on the card; then a warm call of each op timed by the host
+              clock (the multiplies also with device busy, launches and
+              peak bytes, and where a Beaver multiply's device time goes:
+              its open, mont_mul, the int64 glue)
+ 21 models    mimc_mpc_batch_jit (one body with mimc_mpc_batch) at
+              B = 1,000 against mimc_plain, iterated_butterfly_network_jit
+              at k = 1,024 (one take per kind, 51,200 switches) opening to
+              a shuffle of its input, launch counts as in 20; warm calls
+              timed: blocks/s,
+              network ms and device busy; one ``runtime_timing`` line for
+              both phases
 
 The last line of the output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -181,7 +211,9 @@ check K2's per lane of the check tensor.
 import argparse
 import itertools
 import json
+import math
 import os
+import random
 import re
 import shutil
 import subprocess
@@ -2694,6 +2726,353 @@ def phase_per_column(dev, reps):
     return full["double"], rates
 
 
+# -- phases 20-21: the MPC runtime core and the models ------------------------
+
+RT_B = 1 << 16                    # values per multiply (an open of 2^17)
+RT_REPS = 3                       # timed multiplies per strategy
+RT_INV_B = 4096                   # inversions and divisions
+RT_GAO_B = 220                    # the multiply with 21 lying parties
+EQ_B, LT_B = 1024, 256            # equality and less-than comparisons
+REF_BATCHES, REF_D1 = 1024, 64    # refine_triples: batches of d+1 triples
+MIMC_B = 1000                     # bench_mimc's largest batch
+NET_K = 1024                      # the asynchromix butterfly epoch
+# the direct open, the sampler and the band encode (the dealer), mont_mul
+RUNTIME_KERNELS = ("open_direct", "rand_limbs", "band_matmul", "mont_mul")
+# fp_matmul's routes: the Gao redo and refinement's interpolations
+MATMUL_KERNELS = ("fp_matmul_cios", "mxu_fused2", "mxu_fused", "mxu_redc")
+
+
+def rt_values(seed, count, bound=P):
+    """`count` Python ints in [0, bound) from a seed (host side)."""
+    rng = random.Random(seed)
+    return [rng.randrange(bound) for _ in range(count)]
+
+
+def rt_share(ctx, vals):
+    """Degree-t shares [n, B] of the values, dealt by the context's dealer
+    (the sampler and the band encode on the card)."""
+    return ctx.ShareArray(ctx.preproc._share_values(
+        FpArray.from_ints(vals, device=ctx.device)))
+
+
+def rt_open_ints(sa):
+    """Open a ShareArray (the context checks that every party's view is
+    equal); party 0's values as Python ints."""
+    return party0_ints(sa.open())
+
+
+def party0_ints(opened):
+    """Party 0's row of an opened [n, ...] FpArray as Python ints (the
+    other 63 copies are not converted on the host)."""
+    return [int(v) for v in FpArray(opened.limbs[:, 0]).to_ints().reshape(-1)]
+
+
+def rt_check_clean(what):
+    plain = read_plain()
+    check(all(v == 0 for v in plain.values()),
+          f"{what}: plain versions ran on the card: {plain}")
+
+
+def rt_profile(fn):
+    """Device-busy ms, kernel launches and the top kernels of one call."""
+    busy, count, top = device_busy_ms(fn, 12)
+    return {"device_busy_ms": busy, "kernel_launches": count,
+            "device_ms_top_kernels": top}
+
+
+def rt_timed(fn, units, count, reps):
+    """Host-clock ms per call over `reps` calls (each ends in a
+    synchronize) and the rate; the peak bytes of one more call above what
+    was allocated before it, and its device profile. The caller deals
+    first: nothing here draws."""
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        sync()
+    ms = (time.perf_counter() - t0) / reps * 1e3
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    sync()
+    peak = torch.cuda.max_memory_allocated() - base
+    return {"ms_per_call": ms, units: count / ms * 1e3,
+            "peak_bytes_per_call": peak, **rt_profile(fn)}
+
+
+def beaver_breakdown(ctx, x, y):
+    """Where the device time of one Beaver multiply goes: the whole
+    multiply, its open alone (pack, direct open, unpack, the agreement
+    check) and its mont_mul launches; the rest is the int64 add_mod /
+    sub_mod ripples and the concatenations."""
+    from honeybadgermpc_tpu_torch.runtime.context import ShareArray
+    mul = rt_profile(lambda: x * y)
+    B = x.v.shape[-1]
+    a, b, _ = ctx.preproc.get_triples(B)
+    both = ShareArray.concat([x - ctx.from_preproc(a),
+                              y - ctx.from_preproc(b)])
+    sync()
+    opn = rt_profile(lambda: ctx.open_share_array(both))
+    mont_ms = sum(v for k, v in mul["device_ms_top_kernels"].items()
+                  if "mont_mul" in k)
+    return {"multiply_busy_ms": mul["device_busy_ms"],
+            "open_busy_ms": opn["device_busy_ms"],
+            "open_top_kernels": opn["device_ms_top_kernels"],
+            "mont_mul_ms": mont_ms,
+            "add_sub_glue_ms": mul["device_busy_ms"]
+            - opn["device_busy_ms"] - mont_ms,
+            "multiply_top_kernels": mul["device_ms_top_kernels"],
+            "multiply_launches": mul["kernel_launches"]}
+
+
+def host_timed(fn):
+    """(result, host-clock seconds) of one call that ends in a
+    synchronize."""
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def phase_runtime(dev, reps):
+    """The MPC runtime core at n=64, t=21 through MpcContext and
+    ShareArray's operators, each result against Python ints: Beaver and
+    double-sharing multiplies of B = 65,536, invert and divide, a multiply
+    with 21 lying parties (the Gao redo), equality and less-than,
+    refine_triples. The launch counts are set to 0 just before and read
+    after the checked calls (each op's first call); the timed calls come
+    after, warm, each on pools dealt before its window."""
+    from honeybadgermpc_tpu_torch.runtime import comparison
+    from honeybadgermpc_tpu_torch.runtime.context import (
+        MixinConstants, MpcContext, double_sharing_multiply_arrays)
+    from honeybadgermpc_tpu_torch.runtime.refinement import refine_triples
+    t_start = time.perf_counter()
+    pre = PreProcessedElements(N, T, seed=1515, device=dev)
+    ctx = comparison.install(MpcContext(N, T, preproc=pre, device=dev))
+    dsh = MpcContext(N, T, preproc=pre, device=dev, mixins={
+        MixinConstants.MultiplyShareArray: double_sharing_multiply_arrays})
+    sync()
+    reset_launches()
+    rows = {}
+
+    # Beaver and double-sharing multiplies, all products checked
+    xs, ys = rt_values(1, RT_B), rt_values(2, RT_B)
+    want = [u * v % P for u, v in zip(xs, ys)]
+    x, y = rt_share(ctx, xs), rt_share(ctx, ys)
+    pre.generate_triples(RT_B)
+    pre.generate_double_shares(RT_B)
+    for name, c in (("beaver", ctx), ("double_sharing", dsh)):
+        xc, yc = c.ShareArray(x.v), c.ShareArray(y.v)
+        z, secs = host_timed(lambda: xc * yc)
+        check(rt_open_ints(z) == want, f"{name} multiply: wrong products")
+        rows[name] = {"B": RT_B, "products_checked": RT_B,
+                      "first_call_ms": secs * 1e3}
+    check(pre._pool("triples").remaining() == 0
+          and pre._pool("double_shares").remaining() == 0,
+          "a multiply took other than B preprocessed elements")
+
+    # invert and divide
+    nz = [v or 1 for v in rt_values(3, RT_INV_B)]
+    nz2 = [v or 1 for v in rt_values(4, RT_INV_B)]
+    pre.generate_rands(2 * RT_INV_B)
+    pre.generate_triples(3 * RT_INV_B)
+    xi, yi = rt_share(ctx, nz), rt_share(ctx, nz2)
+    inv, inv_s = host_timed(xi.invert)
+    check(rt_open_ints(inv) == [pow(v, P - 2, P) for v in nz],
+          "invert: wrong values")
+    quo, div_s = host_timed(lambda: xi / yi)
+    check(rt_open_ints(quo) == [u * pow(v, P - 2, P) % P
+                                for u, v in zip(nz, nz2)],
+          "divide: wrong values")
+    rows["invert_divide"] = {"B": RT_INV_B, "invert_ms": inv_s * 1e3,
+                             "divide_ms": div_s * 1e3}
+
+    # a multiply with 21 lying parties: the Gao redo corrects the open
+    gx, gy = rt_values(5, RT_GAO_B), rt_values(6, RT_GAO_B)
+    pre.generate_triples(RT_GAO_B)
+    sx, sy = rt_share(ctx, gx), rt_share(ctx, gy)
+    bad = rec.inject_share_faults(sx.v, SimBackend(N).my_ids(dev),
+                                  BAD_PARTIES, (1515, 7))
+    check(not torch.equal(bad.limbs, sx.v.limbs), "no share was corrupted")
+    before = ctx.nerr_total.clone()
+    z, gao_s = host_timed(lambda: ctx.ShareArray(bad) * sy)
+    nerr = (ctx.nerr_total - before).tolist()
+    check(tuple(ctx.nerr_total.shape) == (N,), "nerr_total is not [n]")
+    # the 220 x - a values are 10 chunks of t+1, each with 21 wrong sources
+    check(nerr == [RT_GAO_B // K * len(BAD_PARTIES)] * N,
+          f"Gao multiply: per-party counts {nerr}")
+    check(rt_open_ints(z) == [u * v % P for u, v in zip(gx, gy)],
+          "Gao multiply: wrong products")
+    rows["gao_multiply"] = {"B": RT_GAO_B, "lying_parties": len(BAD_PARTIES),
+                            "nerr_per_party": nerr[0], "ms": gao_s * 1e3}
+
+    # equality (half the pairs equal) and less-than (some pairs equal)
+    ex = rt_values(7, EQ_B)
+    ey = [v if i % 2 == 0 else w
+          for i, (v, w) in enumerate(zip(ex, rt_values(8, EQ_B)))]
+    la, lb = rt_values(9, LT_B, 1 << 250), rt_values(10, LT_B, 1 << 250)
+    lb[:LT_B // 32] = la[:LT_B // 32]
+
+    def deal_equality():
+        pre.generate_bits(32 * EQ_B)
+        pre.generate_rands(64 * EQ_B)
+        pre.generate_triples(127 * EQ_B)
+
+    def deal_less_than():
+        pre.generate_share_bits(2 * LT_B)
+        pre.generate_triples(768 * LT_B)
+
+    deal_equality()
+    ea, eb = rt_share(ctx, ex), rt_share(ctx, ey)
+    eq, eq_s = host_timed(lambda: ea == eb)
+    check([v != 0 for v in rt_open_ints(eq)] == [u == v for u, v in
+                                                 zip(ex, ey)],
+          "equality: wrong results")
+    deal_less_than()
+    lsa, lsb = rt_share(ctx, la), rt_share(ctx, lb)
+    lt, lt_s = host_timed(lambda: lsa < lsb)
+    check(rt_open_ints(lt) == [int(u < v) for u, v in zip(la, lb)],
+          "less_than: wrong results")
+    check(pre._pool("triples").remaining() == 0
+          and pre._pool("bits").remaining() == 0
+          and pre._pool("share_bits").remaining() == 0,
+          "the comparisons took other than their preprocessing")
+    rows["comparison"] = {"equality_B": EQ_B, "less_than_B": LT_B,
+                          "equality_first_call_ms": eq_s * 1e3,
+                          "less_than_first_call_ms": lt_s * 1e3}
+
+    # refine_triples: 1,024 batches of 64 dirty triples, 43 out each
+    nd = REF_BATCHES * REF_D1
+    kout = REF_D1 - T
+
+    def dirty():
+        pre.generate_triples(nd + REF_BATCHES * (REF_D1 - 1))
+        return [ctx.ShareArray(v.reshape(N, REF_BATCHES, REF_D1))
+                for v in pre.get_triples(nd)]
+
+    da, db, dc = dirty()
+    (ra, rb, rc), ref_s = host_timed(lambda: refine_triples(ctx, da, db, dc))
+    check(tuple(ra.shape) == (REF_BATCHES, kout), "refined shape")
+    va, vb, vc = (party0_ints(v)
+                  for v in ctx.open_share_arrays([ra, rb, rc]))
+    check(len(va) == REF_BATCHES * kout
+          and all(a * b % P == c for a, b, c in zip(va, vb, vc)),
+          "refine_triples: c != a*b")
+    rows["refine_triples"] = {"batches": REF_BATCHES, "d_plus_1": REF_D1,
+                              "out_per_batch": kout,
+                              "first_call_ms": ref_s * 1e3}
+
+    sync()
+    launches = read_launches()
+    rt_check_clean("runtime phase")
+    for name in RUNTIME_KERNELS:
+        check(launches[name] > 0, f"the runtime path never ran {name}")
+    check(any(launches[k] > 0 for k in MATMUL_KERNELS),
+          f"no fp_matmul route ran: {launches}")
+    check(tuple(ctx.nerr_total.shape) == (N,)
+          and ctx.nerr_total.dtype == torch.int32, "nerr_total not int32 [n]")
+    say("runtime", ok=True, n=N, t=T, checks=rows,
+        launches={k: v for k, v in launches.items() if v},
+        seconds=time.perf_counter() - t_start)
+
+    # timing: warm calls, each on pools dealt before its window
+    timing = {}
+    for name, c, kind in (("beaver", ctx, "triples"),
+                          ("double_sharing", dsh, "double_shares")):
+        # warm, timed, peak and profiled calls; the breakdown's two
+        getattr(pre, f"generate_{kind}")(
+            RT_B * (reps + (5 if name == "beaver" else 3)))
+        xc, yc = c.ShareArray(x.v), c.ShareArray(y.v)
+        xc * yc
+        timing[name] = rt_timed(lambda: xc * yc, "multiplies_per_s", RT_B,
+                                reps)
+        if name == "beaver":
+            timing[name]["breakdown"] = beaver_breakdown(c, xc, yc)
+    deal_equality()
+    _, secs = host_timed(lambda: ea == eb)
+    timing["equality"] = {"B": EQ_B, "ms": secs * 1e3,
+                          "comparisons_per_s": EQ_B / secs}
+    deal_less_than()
+    _, secs = host_timed(lambda: lsa < lsb)
+    timing["less_than"] = {"B": LT_B, "ms": secs * 1e3,
+                           "comparisons_per_s": LT_B / secs}
+    da, db, dc = dirty()
+    _, secs = host_timed(lambda: refine_triples(ctx, da, db, dc))
+    timing["refine_triples"] = {"ms": secs * 1e3, "refined_triples_per_s":
+                                REF_BATCHES * kout / secs}
+    timing["gao_multiply_ms"] = gao_s * 1e3
+    torch.cuda.empty_cache()
+    return launches, timing
+
+
+def phase_models(dev):
+    """MiMC (one body under both of the reference's names) at bench_mimc's
+    batch of 1,000 against mimc_plain, and the k = 1,024 butterfly network (100
+    rounds of 512 switches) opening to a shuffle of its inputs, with the
+    launch counts set to 0 just before and read after the checked calls;
+    then a warm call of each timed by the host clock, on pools dealt
+    before its window."""
+    from honeybadgermpc_tpu_torch.models import butterfly, mimc
+    from honeybadgermpc_tpu_torch.runtime.context import MpcContext
+    t_start = time.perf_counter()
+    pre = PreProcessedElements(N, T, seed=1516, device=dev)
+    ctx = MpcContext(N, T, preproc=pre, device=dev)
+    sync()
+    reset_launches()
+    key = rt_values(20, 1)[0]
+    msg = rt_values(21, MIMC_B)
+    want = [mimc.mimc_plain(m, key) for m in msg]
+    xm = rt_share(ctx, msg)
+    check(mimc.mimc_mpc_batch_jit is mimc.mimc_mpc_batch,
+          "mimc_mpc_batch_jit: not the one body of mimc_mpc_batch")
+    pre.generate_cubes(mimc.ROUND * MIMC_B)
+    enc = mimc.mimc_mpc_batch_jit(ctx, xm, key)
+    check(rt_open_ints(enc) == want, "mimc_mpc_batch_jit: != mimc_plain")
+    rounds = int(math.log2(NET_K)) ** 2
+
+    def deal_net():
+        pre.generate_one_minus_ones(rounds * NET_K // 2)
+        pre.generate_triples(rounds * NET_K // 2)
+
+    vals = rt_values(22, NET_K)
+    xs = rt_share(ctx, vals)
+    deal_net()
+    out = butterfly.iterated_butterfly_network_jit(ctx, xs, NET_K)
+    got = rt_open_ints(out)
+    check(sorted(got) == sorted(vals) and got != vals,
+          "butterfly: the output is not a shuffle of the input")
+    check(pre._pool("triples").remaining() == 0
+          and pre._pool("one_minus_ones").remaining() == 0,
+          "butterfly: one take per kind, all used")
+    sync()
+    launches = read_launches()
+    rt_check_clean("models phase")
+    for name in RUNTIME_KERNELS:
+        check(launches[name] > 0, f"the models path never ran {name}")
+    check(ctx.nerr_total.tolist() == [0] * N, "honest models: nerr != 0")
+    say("models", ok=True, n=N, t=T, mimc_B=MIMC_B, net_k=NET_K,
+        launches={k: v for k, v in launches.items() if v},
+        seconds=time.perf_counter() - t_start)
+
+    timing = {}
+    pre.generate_cubes(mimc.ROUND * MIMC_B)
+    _, secs = host_timed(lambda: mimc.mimc_mpc_batch_jit(ctx, xm, key))
+    timing["mimc_mpc_batch_jit"] = {"B": MIMC_B, "ms": secs * 1e3,
+                                    "blocks_per_s": MIMC_B / secs}
+    deal_net()
+    _, secs = host_timed(
+        lambda: butterfly.iterated_butterfly_network_jit(ctx, xs, NET_K))
+    timing["butterfly_network"] = {"k": NET_K, "rounds": rounds,
+                                   "switches": rounds * NET_K // 2,
+                                   "ms": secs * 1e3}
+    deal_net()
+    timing["butterfly_network"].update(rt_profile(
+        lambda: butterfly.iterated_butterfly_network_jit(ctx, xs, NET_K)))
+    torch.cuda.empty_cache()
+    return launches, timing
+
+
 def ptxas_core(log):
     """Registers and spill bytes of the kernels on csrc/band_gemm.cuh, of
     the sampler and of rows 7 and 12, from ptxas' report in the build log:
@@ -2747,7 +3126,8 @@ def ptxas_core(log):
 
 
 def kernels_line(times, err, launches, launches_triples, launches_robust,
-                 launches_programs, launches_ntl, launches_pc, int_mm_ms):
+                 launches_programs, launches_ntl, launches_pc,
+                 launches_runtime, int_mm_ms):
     """The rows of the `kernels` JSON line, one per kernel: its source, the
     TPU kernel it replaces, launches on its path, times and bound."""
     meta = {
@@ -2865,7 +3245,8 @@ def kernels_line(times, err, launches, launches_triples, launches_robust,
             "replaces": replaces, "launches": count,
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-            "shape": shape, "share_of_bound": bound_ms / ms}
+            "shape": shape, "share_of_bound": bound_ms / ms,
+            "launches_runtime": launches_runtime[name]}
         if name == "randousha_deal":
             row["launches_per_column_call"] = launches_pc[name]
         if name in ("open_direct", "mont_mul"):
@@ -2997,10 +3378,17 @@ def main():
     torch.cuda.empty_cache()
     launches_ntl, ntl_rates = phase_ntl(dev)
     say("ntl_timing", card=card, **ntl_rates)
+    torch.cuda.empty_cache()
+
+    launches_rt, rt_timing = phase_runtime(dev, min(args.reps, RT_REPS))
+    launches_models, models_timing = phase_models(dev)
+    say("runtime_timing", card=card, **rt_timing, **models_timing)
+    launches_runtime = {k: launches_rt[k] + launches_models[k]
+                        for k in launches_rt}
 
     kernels = kernels_line(times, err, launches, launches_triples,
                            launches_robust, launches_programs, launches_ntl,
-                           launches_pc, int_mm_ms)
+                           launches_pc, launches_runtime, int_mm_ms)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

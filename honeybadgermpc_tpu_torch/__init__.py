@@ -33,7 +33,11 @@ open and its in-program robust fallback (ops/fused_open.py); and the
 NTL-compatible API (``ntl.py``) with the coding layer beneath it: the NTT
 (ops/ntt.py), the FNT decode (ops/rs.py), Welch-Berlekamp, the random
 refinement, every route of ``fp_matmul`` on the card, and the host math
-layer (``field.py``, ``polynomial.py``, ``elliptic_curve.py``).
+layer (``field.py``, ``polynomial.py``, ``elliptic_curve.py``); the MPC
+runtime core (``runtime/context.py``: ``MpcContext``, ``ShareArray``,
+``Share``; every dealer kind; ``runtime/comparison.py``; triple
+refinement) and the models ``mimc``, ``mimc_symmetric`` and
+``butterfly``.
 """
 
 __version__ = "0.1.0"

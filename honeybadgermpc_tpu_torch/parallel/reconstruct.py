@@ -211,23 +211,42 @@ def _sim_reconstruct_jit(n: int, t: int, use_omega_powers: bool,
 
 def sim_batch_reconstruct(shares: FpArray, n: int, t: int,
                           use_omega_powers: bool = False, robust: bool = True):
-    """SimBackend batch open of shares [n, B] -> (secrets [n, B], nerr [n]),
-    on the device the shares lie on. Robust opens are TWO-PHASE, as the
-    reference runs them on the accelerator: a detect-only open, then, only
-    when it reports a mismatch, ``host_robust_redo`` (nerr then counts
-    each decode's errors at its destination party, R1 plus R2)."""
+    """SimBackend batch open of shares [n, ..., B] -> (secrets [n, ..., B],
+    nerr), on the device the shares lie on. Robust opens are TWO-PHASE, as
+    the reference runs them on the accelerator: a detect-only open, then,
+    only when it reports a mismatch, ``host_robust_redo`` (nerr then counts
+    each decode's errors at its destination party, R1 plus R2).
+
+    nerr is [n] for shares [n, B]. Extra batch axes between the party and
+    B flatten into one open (each trailing row a multiple of t+1, so chunk
+    boundaries stay aligned) and are restored after; nerr is then
+    [n, ...], as the reference's generic program returns it: each row's
+    count from the redo where it ran, else the detect-only counts, which
+    are charged to the source party and do not split into rows, each in
+    its party's first row."""
+    shp = tuple(shares.shape)
+    mid = shp[1:-1]
+    flat = shares.limbs.reshape(L, n, -1) if mid else shares.limbs
     run = _sim_reconstruct_jit(n, t, use_omega_powers, robust,
                                fallback=not robust)
-    limbs, nerr = run(shares.limbs)
+    limbs, nerr = run(flat)
     if getattr(run, "packed", False):
         limbs = unpack_limbs(limbs)
-    if robust and int(nerr.sum()) != 0:
-        sec_np, nerr_np = host_robust_redo(
-            shares.limbs.cpu().numpy().view(np.uint32), n, t,
-            use_omega_powers, device=shares.device)
+    found = robust and int(nerr.sum()) != 0
+    if mid:
+        rows = torch.zeros((n, flat.shape[-1] // shp[-1]), dtype=torch.int32,
+                           device=shares.device)
+        rows[:, 0] = nerr
+        nerr = rows.reshape((n,) + mid)
+    if found:
+        sec_np, chunk_np = host_robust_redo(
+            flat.cpu().numpy().view(np.uint32), n, t, use_omega_powers,
+            device=shares.device, per_chunk=True)
         limbs = torch.from_numpy(sec_np.view(np.int32)).to(shares.device)
-        nerr = torch.from_numpy(nerr_np).to(shares.device)
-    return FpArray(limbs), nerr
+        nerr = torch.from_numpy(
+            chunk_np.reshape((n,) + mid + (-1,)).sum(-1).astype(np.int32)
+        ).to(shares.device)
+    return FpArray(limbs.reshape((L,) + shp)), nerr
 
 
 # ---------------------------------------------------------------------------
@@ -289,11 +308,13 @@ def _redo_decode_round(flat_np, n, use_omega_powers, k, device):
 
 def host_robust_redo(shares_np: np.ndarray, n: int, t: int,
                      use_omega_powers: bool = False,
-                     device=torch.device("cuda")):
+                     device=torch.device("cuda"), per_chunk: bool = False):
     """Full robust re-open of shares_np uint32 [L, n, B] (host array) with
     error correction up to (n-t-1)//2 wrong shares per decode, on `device`.
-    Returns (secrets uint32 [L, n, B], nerr int32 [n]) as numpy arrays.
-    Mirrors batch_reconstruct's two rounds; each decode is a Gao segment."""
+    Returns (secrets uint32 [L, n, B], nerr int32 [n]) as numpy arrays;
+    ``per_chunk=True`` returns nerr [n, B/(t+1)] instead, each chunk's
+    count. Mirrors batch_reconstruct's two rounds; each decode is a Gao
+    segment."""
     k = t + 1
     L0, n_, B = shares_np.shape
     if n_ != n or B % k:
@@ -317,9 +338,8 @@ def host_robust_redo(shares_np: np.ndarray, n: int, t: int,
         np.ascontiguousarray(gathered).reshape(L0, n * C, n), n,
         use_omega_powers, k, device)
     secrets = co2.reshape(L0, n, B)
-    nerr = (err1.reshape(n, C).sum(1) + err2.reshape(n, C).sum(1)) \
-        .astype(np.int32)
-    return secrets, nerr
+    nerr = (err1.reshape(n, C) + err2.reshape(n, C)).astype(np.int32)
+    return secrets, (nerr if per_chunk else nerr.sum(1).astype(np.int32))
 
 
 def inject_share_faults(shares: FpArray, party_ids, fault_parties, key_data):

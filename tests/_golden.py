@@ -25,7 +25,9 @@ MODULES = ("test_torch_slice_robust_open", "test_torch_rs_fnt",
            "test_torch_slice_ntl", "test_torch_ntl",
            "test_torch_sqrt_mul_add", "test_torch_gao",
            "test_torch_band_gemm_epilogues", "test_torch_mont_mul",
-           "test_torch_finish_cios")
+           "test_torch_finish_cios", "test_torch_context",
+           "test_torch_comparison", "test_torch_mimc_butterfly",
+           "test_torch_refine_triples")
 
 
 def golden(name):

@@ -138,7 +138,7 @@ def test_port_dealer_is_seeded_and_pool_is_consumed():
     x, y, z = a.get_rands(4), b.get_rands(4), c.get_rands(4)
     assert torch.equal(x.limbs, y.limbs) and not torch.equal(x.limbs, z.limbs)
     assert a._pool("rands").remaining() == 2
-    with pytest.raises(ValueError):
+    with pytest.raises(AssertionError, match="exhausted"):
         a.get_rands(3)
 
 
