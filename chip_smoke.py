@@ -37,7 +37,12 @@ n=64, t=21:
     inversion and division, a multiply whose input shares 21 parties
     falsify (the Gao redo), equality and less-than, ``refine_triples`` of
     1,024 batches of 64 dirty triples, MiMC at bench_mimc's batch of 1,000
-    and the k = 1,024 butterfly network (100 rounds of 512 switches).
+    and the k = 1,024 butterfly network (100 rounds of 512 switches);
+  * fixed point, power mixing and the AsynchroMix app — a
+    ``FixedPointArray`` multiply of 4,096 values, ``lt``, ``trunc`` and
+    ``div2m`` of 1,024, the bench's power-mix epochs at k = 64 and 256,
+    its butterfly epoch at k = 1,024 with the triple refill, and one
+    event-driven epoch through the coordinator.
 
 The first run builds the kernels from ``honeybadgermpc_tpu_torch/csrc``
 into ``honeybadgermpc_tpu_torch/build``.
@@ -45,7 +50,8 @@ into ``honeybadgermpc_tpu_torch/build``.
 Phases, each printing one JSON line; any failure exits non-zero (13 runs
 right after the offline kernels of phase 8, 18 and 19 right after 10):
   1 device    a CUDA card must be present; prints its name and power limit
-  2 build     compile and load the nineteen kernels; ptxas registers
+  2 build     compile and load the nineteen kernels and the host root
+              finder (native/hbmpc_native.cpp, g++); ptxas registers
               and spills of the kernels on the wgmma core, of the sampler
               and of rows 7 and 12
   3 kernels   each kernel against its plain PyTorch version on the card,
@@ -180,6 +186,24 @@ right after the offline kernels of phase 8, 18 and 19 right after 10):
               timed: blocks/s,
               network ms and device busy; one ``runtime_timing`` line for
               both phases
+ 22 apps      with the launch counts as in 20: a FixedPointArray multiply
+              at B = 4,096 (each result floor or floor + 1 of the reps'
+              product, every party's floats within 1e-3), lt at B = 1,024
+              (an eighth of the pairs equal) against the reps, trunc and
+              div2m at B = 1,024, m = 32 on |x| < 2^62 against Python ints;
+              ServerGroupSim(mix="powers").mix_epoch at k = 64 and 256 and
+              the butterfly group's at k = 1,024, the clients' masks
+              interpolated from t+1 servers' shares, each the sorted
+              message set; run_one_epoch(n=64, t=21, k=64, mix="powers")
+              through the coordinator, untimed. Then (``apps_timing``,
+              pools dealt outside every window) each fixed-point op's ms,
+              rate, device busy, launches and peak bytes; a warm power-mix
+              epoch per k, messages/s, split into compute_power_shares
+              (its launches, device busy and peak bytes), the two opens,
+              power_sums and the host root finder; a warm butterfly
+              epoch's messages/s online and with the refill of rounds * k
+              = 102,400 triples at phase 10's triple rate, and the offline
+              fraction; the phase's seconds
 
 The last line of the output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -2780,22 +2804,25 @@ def rt_profile(fn):
             "device_ms_top_kernels": top}
 
 
-def rt_timed(fn, units, count, reps):
+def rt_timed(fn, units, count, reps, deal=lambda: None):
     """Host-clock ms per call over `reps` calls (each ends in a
     synchronize) and the rate; the peak bytes of one more call above what
-    was allocated before it, and its device profile. The caller deals
-    first: nothing here draws."""
-    sync()
-    t0 = time.perf_counter()
+    was allocated before it, and its device profile. `deal` fills the
+    pools before each call, outside its window; nothing else draws."""
+    secs = 0.0
     for _ in range(reps):
-        fn()
-        sync()
-    ms = (time.perf_counter() - t0) / reps * 1e3
+        deal()
+        secs += host_timed(fn)[1]
+    ms = secs / reps * 1e3
+    deal()
+    sync()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     fn()
     sync()
     peak = torch.cuda.max_memory_allocated() - base
+    deal()
+    sync()
     return {"ms_per_call": ms, units: count / ms * 1e3,
             "peak_bytes_per_call": peak, **rt_profile(fn)}
 
@@ -3073,6 +3100,239 @@ def phase_models(dev):
     return launches, timing
 
 
+# -- phase 22: fixed point, power mixing and the AsynchroMix app --------------
+
+FX_MUL_B, FX_LT_B, FX_TRUNC_B = 4096, 1024, 1024
+FX_SIGNED_BITS = 62               # |x| < 2^62 for trunc and div2m
+PM_KS = (64, 256)                 # the bench's power-mix rows
+EPOCH_K = 64                      # the event-driven epoch
+
+
+def fx_reps(seed, count):
+    """Fixed-point values in [-100, 100) from a seed and their reps."""
+    from honeybadgermpc_tpu_torch.models.fixedpoint import \
+        to_fixed_point_repr
+    rng = random.Random(seed)
+    vals = [rng.uniform(-100.0, 100.0) for _ in range(count)]
+    return vals, [to_fixed_point_repr(v) for v in vals]
+
+
+def signed_ints(opened):
+    """Party 0's opened values as signed ints (above p/2: negative)."""
+    return [v - P if v > P // 2 else v for v in party0_ints(opened)]
+
+
+def mix_pairs(group, msgs, poly):
+    """The clients' masked inputs (m + r, i) of an epoch: each mask r
+    interpolated from t+1 servers' shares (the bench's client path)."""
+    pairs = []
+    for i, m in enumerate(msgs):
+        mask = int(poly.interpolate_at(
+            [(j + 1, group.mask_share(j, i)) for j in range(T + 1)], 0))
+        pairs.append(((m + mask) % P, i))
+    return pairs
+
+
+def power_mix_breakdown(group, pairs, want):
+    """Where a warm power-mix epoch's host time goes: compute_power_shares
+    (its open of e = m - b included), that open alone, power_sums (the
+    sum and the second open), that open alone, Newton and the host root
+    finder; then the device profile and peak bytes of compute_power_shares
+    (O(k) launch groups: its launches), each on freshly dealt powers."""
+    from honeybadgermpc_tpu_torch.models import powermixing as pm
+    ctx, k = group.ctx, group.k
+    msg = group.message_shares(pairs)
+    group.pre.generate_powers(k, k)
+    bp = ctx.from_preproc(group.pre.get_powers(k))
+    b1 = ctx.ShareArray(FpArray(bp.v.limbs[..., 0]), bp.t)
+    mp, cps_s = host_timed(lambda: pm.compute_power_shares(ctx, msg, bp))
+    _, open1_s = host_timed(lambda: ctx.open_share_array(msg - b1))
+    sums, ps_s = host_timed(lambda: pm.power_sums(ctx, mp))
+    summed = ctx.ShareArray(pm._sum_axis(mp.v, 1), mp.t)
+    _, open2_s = host_timed(lambda: ctx.open_share_array(summed))
+    psums = party0_ints(sums)
+    roots, roots_s = host_timed(
+        lambda: pm.find_roots(pm.newton_inversion(psums, k)))
+    check(roots == want, f"power mix k={k}: the pieces' roots are wrong")
+    group.pre.generate_powers(k, k)
+    bp = ctx.from_preproc(group.pre.get_powers(k))
+    sync()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    pm.compute_power_shares(ctx, msg, bp)
+    sync()
+    peak = torch.cuda.max_memory_allocated() - base
+    group.pre.generate_powers(k, k)
+    bp = ctx.from_preproc(group.pre.get_powers(k))
+    sync()
+    prof = rt_profile(lambda: pm.compute_power_shares(ctx, msg, bp))
+    return {"compute_power_shares_ms": cps_s * 1e3,
+            "open_e_ms": open1_s * 1e3, "power_sums_ms": ps_s * 1e3,
+            "open_sums_ms": open2_s * 1e3,
+            "newton_find_roots_host_ms": roots_s * 1e3,
+            "compute_power_shares_chunks": len(list(pm._chunks(
+                k, pm.CHUNK_ELEMENTS // (N * k)))),
+            "compute_power_shares_peak_bytes": peak,
+            "compute_power_shares_device_busy_ms": prof["device_busy_ms"],
+            "compute_power_shares_launches": prof["kernel_launches"],
+            "compute_power_shares_top_kernels":
+                prof["device_ms_top_kernels"]}
+
+
+def phase_apps(dev, triples_per_s):
+    """Fixed-point arithmetic, power mixing and the AsynchroMix app at
+    n=64, t=21, each result against a host oracle, with the launch counts
+    set to 0 just before and read after the checked calls; then warm calls
+    timed by the host clock (with device busy, launches and peak bytes
+    where the profiler applies), every pool dealt before its window."""
+    import asyncio
+
+    from honeybadgermpc_tpu_torch import GF
+    from honeybadgermpc_tpu_torch.apps import asynchromix as amx
+    from honeybadgermpc_tpu_torch.models import fixedpoint as fx
+    from honeybadgermpc_tpu_torch.polynomial import polynomials_over
+    from honeybadgermpc_tpu_torch.runtime.context import MpcContext
+    t_start = time.perf_counter()
+    pre = PreProcessedElements(N, T, seed=1517, device=dev)
+    ctx = MpcContext(N, T, preproc=pre, device=dev)
+    poly = polynomials_over(GF(P))
+    sync()
+    reset_launches()
+    rows, timing = {}, {}
+
+    # fixed point: a multiply of B = 4,096, lt, trunc and div2m of 1,024
+    av, ar = fx_reps(30, FX_MUL_B)
+    bv, br = fx_reps(31, FX_MUL_B)
+
+    def deal_mul():                  # trunc_pr's 32 + 128 bits, one triple
+        pre.generate_bits((2 * fx.K + fx.KAPPA) * FX_MUL_B)
+        pre.generate_triples(FX_MUL_B)
+
+    pre.generate_zeros(2 * FX_MUL_B)
+    deal_mul()
+    a, b = fx.FixedPointArray(ctx, av), fx.FixedPointArray(ctx, bv)
+    prod, mul_s = host_timed(lambda: a * b)
+    got = party0_ints(ctx.open_share_array(prod.share))
+    check(all((g - (x * y >> fx.F)) % P in (0, 1)
+              for g, x, y in zip(got, ar, br)),
+          "fixed-point multiply: not the truncated product of the reps")
+    floats = prod.open()
+    check(floats.shape == (N, FX_MUL_B) and bool(
+        (abs(floats - [x * y for x, y in zip(av, bv)]) <= 1e-3).all()),
+        "fixed-point multiply: off the float product by more than 1e-3")
+
+    lv, lr = fx_reps(32, FX_LT_B)
+    mv, mr = fx_reps(33, FX_LT_B)
+    mv[:FX_LT_B // 8], mr[:FX_LT_B // 8] = lv[:FX_LT_B // 8], \
+        lr[:FX_LT_B // 8]
+
+    def deal_lt():                   # trunc(K, K-1): 63 + 33 bits, a
+        pre.generate_bits((fx.K + fx.KAPPA) * FX_LT_B)     # 64-leaf tree
+        pre.generate_triples(3 * (fx.K - 1) * FX_LT_B)
+
+    pre.generate_zeros(2 * FX_LT_B)
+    deal_lt()
+    la, lb = fx.FixedPointArray(ctx, lv), fx.FixedPointArray(ctx, mv)
+    lt, lt_s = host_timed(lambda: la.lt(lb))
+    check(party0_ints(ctx.open_share_array(lt))
+          == [int(x < y) for x, y in zip(lr, mr)],
+          "fixed-point lt: wrong results")
+
+    xs = [v - (1 << FX_SIGNED_BITS) for v in
+          rt_values(34, FX_TRUNC_B, 1 << (FX_SIGNED_BITS + 1))]
+    m = fx.F
+
+    def deal_trunc():                # div2m: 32 + 64 bits, a 33-leaf tree
+        pre.generate_bits((fx.K + fx.KAPPA) * FX_TRUNC_B)
+        pre.generate_triples(3 * m * FX_TRUNC_B)
+
+    deal_trunc()
+    deal_trunc()
+    xsh = rt_share(ctx, xs)
+    q, trunc_s = host_timed(lambda: fx.trunc(ctx, xsh, fx.K, m))
+    r, div2m_s = host_timed(lambda: fx.div2m(ctx, xsh, fx.K, m))
+    qo, ro = ctx.open_share_arrays([q, r])
+    check(signed_ints(qo) == [v >> m for v in xs], "trunc: wrong quotients")
+    check(party0_ints(ro) == [v % (1 << m) for v in xs],
+          "div2m: wrong remainders")
+    rows["fixed_point"] = {
+        "mul_B": FX_MUL_B, "lt_B": FX_LT_B, "trunc_div2m_B": FX_TRUNC_B,
+        "first_call_ms": {"mul": mul_s * 1e3, "lt": lt_s * 1e3,
+                          "trunc": trunc_s * 1e3, "div2m": div2m_s * 1e3}}
+
+    # the power mix at the bench's k = 64 and 256: epoch 0 checked
+    groups = {}
+    for k in PM_KS:
+        group = amx.ServerGroupSim(N, T, k, seed=3, mix="powers", device=dev)
+        group.deal_masks(k)
+        msgs = rt_values(40 + k, k, 1 << 64)
+        pairs = mix_pairs(group, msgs, poly)
+        out, secs = host_timed(lambda: group.mix_epoch(0, pairs))
+        check(out == sorted(msgs), f"power mix k={k}: not the message set")
+        groups[k] = (group, pairs, sorted(msgs))
+        rows[f"power_mix_k{k}"] = {"first_epoch_ms": secs * 1e3}
+
+    # the butterfly epoch at k = 1,024 (the bench's north-star row)
+    net = amx.ServerGroupSim(N, T, NET_K, seed=3, device=dev)
+    net.deal_masks(NET_K)
+    net.deal_mix_preproc(2)
+    nmsgs = rt_values(50, NET_K, 1 << 64)
+    npairs = mix_pairs(net, nmsgs, poly)
+    out, secs = host_timed(lambda: net.mix_epoch(0, npairs))
+    check(out == sorted(nmsgs), "butterfly epoch: not the message set")
+    rows["butterfly_epoch"] = {"k": NET_K, "first_epoch_ms": secs * 1e3}
+
+    # one event-driven epoch through the coordinator, untimed
+    messages, mixed = asyncio.run(asyncio.wait_for(amx.run_one_epoch(
+        n=N, t=T, k=EPOCH_K, seed=17, mix="powers", device=dev), 600))
+    check(mixed == sorted(messages), "event-driven epoch: wrong output")
+    rows["event_driven_epoch"] = {"n": N, "t": T, "k": EPOCH_K,
+                                  "mix": "powers", "messages": len(mixed)}
+
+    sync()
+    launches = read_launches()
+    rt_check_clean("apps phase")
+    for name in RUNTIME_KERNELS:
+        check(launches[name] > 0, f"the apps path never ran {name}")
+    check(ctx.nerr_total.tolist() == [0] * N, "honest apps: nerr != 0")
+    say("apps", ok=True, n=N, t=T, checks=rows,
+        launches={k: v for k, v in launches.items() if v},
+        seconds=time.perf_counter() - t_start)
+
+    # warm calls, each on pools dealt before its window
+    timing["fixed_point_mul"] = rt_timed(lambda: a * b, "multiplies_per_s",
+                                         FX_MUL_B, 1, deal_mul)
+    timing["fixed_point_lt"] = rt_timed(
+        lambda: la.lt(lb), "comparisons_per_s", FX_LT_B, 1, deal_lt)
+    timing["trunc"] = rt_timed(lambda: fx.trunc(ctx, xsh, fx.K, m),
+                               "values_per_s", FX_TRUNC_B, 1, deal_trunc)
+    timing["div2m"] = rt_timed(lambda: fx.div2m(ctx, xsh, fx.K, m),
+                               "values_per_s", FX_TRUNC_B, 1, deal_trunc)
+    for k, (group, pairs, want) in groups.items():
+        group.pre.generate_powers(k, k)
+        out, secs = host_timed(lambda: group.mix_epoch(1, pairs))
+        check(out == want, f"power mix k={k}: warm epoch wrong")
+        timing[f"power_mix_k{k}"] = {
+            "k": k, "epoch_ms": secs * 1e3, "messages_per_s": k / secs,
+            **power_mix_breakdown(group, pairs, want)}
+    out, secs = host_timed(lambda: net.mix_epoch(1, npairs))
+    check(out == sorted(nmsgs), "butterfly epoch: warm epoch wrong")
+    rounds = int(math.log2(NET_K)) ** 2
+    need = rounds * NET_K
+    refill = need / triples_per_s
+    timing["butterfly_epoch"] = {
+        "k": NET_K, "switch_rounds": rounds, "epoch_ms": secs * 1e3,
+        "messages_per_s_online": NET_K / secs,
+        "triples_per_epoch": need, "triple_rate_per_s": triples_per_s,
+        "refill_ms": refill * 1e3,
+        "messages_per_s_with_refill": NET_K / (secs + refill),
+        "offline_fraction": refill / (secs + refill)}
+    del groups, net
+    torch.cuda.empty_cache()
+    timing["seconds"] = time.perf_counter() - t_start
+    return launches, timing
+
+
 def ptxas_core(log):
     """Registers and spill bytes of the kernels on csrc/band_gemm.cuh, of
     the sampler and of rows 7 and 12, from ptxas' report in the build log:
@@ -3127,7 +3387,7 @@ def ptxas_core(log):
 
 def kernels_line(times, err, launches, launches_triples, launches_robust,
                  launches_programs, launches_ntl, launches_pc,
-                 launches_runtime, int_mm_ms):
+                 launches_runtime, launches_apps, int_mm_ms):
     """The rows of the `kernels` JSON line, one per kernel: its source, the
     TPU kernel it replaces, launches on its path, times and bound."""
     meta = {
@@ -3246,7 +3506,8 @@ def kernels_line(times, err, launches, launches_triples, launches_robust,
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "shape": shape, "share_of_bound": bound_ms / ms,
-            "launches_runtime": launches_runtime[name]}
+            "launches_runtime": launches_runtime[name],
+            "launches_apps": launches_apps[name]}
         if name == "randousha_deal":
             row["launches_per_column_call"] = launches_pc[name]
         if name in ("open_direct", "mont_mul"):
@@ -3328,8 +3589,10 @@ def main():
 
     t0 = time.perf_counter()
     _build.lib()
+    _build.native()
     say("build", ok=True, seconds=round(time.perf_counter() - t0, 3),
         nvcc_seconds=_build.build_seconds,
+        native_seconds=_build.native_build_seconds,
         ptxas=[ln.strip() for ln in _build.build_log().splitlines()
                if "registers" in ln],
         ptxas_band_core=ptxas_core(_build.build_log()))
@@ -3385,10 +3648,13 @@ def main():
     say("runtime_timing", card=card, **rt_timing, **models_timing)
     launches_runtime = {k: launches_rt[k] + launches_models[k]
                         for k in launches_rt}
+    launches_apps, apps_timing = phase_apps(dev, trip["triples_per_s"])
+    say("apps_timing", card=card, **apps_timing)
 
     kernels = kernels_line(times, err, launches, launches_triples,
                            launches_robust, launches_programs, launches_ntl,
-                           launches_pc, launches_runtime, int_mm_ms)
+                           launches_pc, launches_runtime, launches_apps,
+                           int_mm_ms)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -36,8 +36,10 @@ refinement, every route of ``fp_matmul`` on the card, and the host math
 layer (``field.py``, ``polynomial.py``, ``elliptic_curve.py``); the MPC
 runtime core (``runtime/context.py``: ``MpcContext``, ``ShareArray``,
 ``Share``; every dealer kind; ``runtime/comparison.py``; triple
-refinement) and the models ``mimc``, ``mimc_symmetric`` and
-``butterfly``.
+refinement) and the models ``mimc``, ``mimc_symmetric``, ``butterfly``,
+``fixedpoint`` and ``powermixing`` (its root finder the C++ of
+``native/hbmpc_native.cpp``, built into ``build/`` by ``_build.native``);
+the AsynchroMix app and the first tutorial (``apps/``).
 """
 
 __version__ = "0.1.0"

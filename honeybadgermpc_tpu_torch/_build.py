@@ -10,6 +10,13 @@ objects. A build or load failure raises — nothing falls back.
 Interface convention: pointers come from ``tensor.data_ptr()``, the stream
 from ``torch.cuda.current_stream().cuda_stream``; every entry returns
 ``cudaGetLastError()`` as an int and the wrapper raises when it is not 0.
+
+``native()`` is the one host build: the repo's C++ extension
+``native/hbmpc_native.cpp`` (the power mix's root finder), compiled as it
+stands with ``g++`` against this Python's headers into the same
+``build/`` directory, keyed by a hash of the source, the flags, the
+compiler and the Python version, and loaded by file path as module
+``_hbmpc_native``. Its failure raises too.
 """
 
 from __future__ import annotations
@@ -17,9 +24,12 @@ from __future__ import annotations
 import ctypes
 import glob
 import hashlib
+import importlib.util
 import os
 import shutil
 import subprocess
+import sys
+import sysconfig
 import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
@@ -28,8 +38,13 @@ BUILD = os.path.join(_HERE, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
+NATIVE_SRC = os.path.join(_HERE, "..", "native", "hbmpc_native.cpp")
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
+
 _lib = None
+_native = None
 build_seconds = None     # wall time of the build in this process, if any
+native_build_seconds = None
 
 
 def _sources():
@@ -173,3 +188,47 @@ def build_log() -> str:
         return ""
     with open(path) as f:
         return f.read()
+
+
+def _gxx() -> str:
+    cand = shutil.which("g++") or shutil.which("c++")
+    if not cand:
+        raise RuntimeError("g++ not found: the native root finder cannot "
+                           "be built")
+    return cand
+
+
+def native():
+    """The host extension built from ``native/hbmpc_native.cpp`` (built on
+    first use into ``build/``; a failed build or load raises with the
+    compiler's output)."""
+    global _native, native_build_seconds
+    if _native is not None:
+        return _native
+    gxx = _gxx()
+    version = subprocess.run([gxx, "-dumpfullversion"], capture_output=True,
+                             text=True).stdout.strip()
+    include = sysconfig.get_paths()["include"]
+    h = hashlib.sha256(" ".join(GXX_FLAGS + [version, sys.version,
+                                             include]).encode())
+    with open(NATIVE_SRC, "rb") as f:
+        h.update(f.read())
+    so_path = os.path.join(BUILD, f"_hbmpc_native_{h.hexdigest()[:16]}"
+                                  f"{sysconfig.get_config_var('EXT_SUFFIX')}")
+    if not os.path.exists(so_path):
+        os.makedirs(BUILD, exist_ok=True)
+        tmp = so_path + f".tmp{os.getpid()}"
+        cmd = [gxx, *GXX_FLAGS, f"-I{include}", NATIVE_SRC, "-o", tmp]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        if res.returncode != 0:
+            raise RuntimeError("native build failed:\n$ " + " ".join(cmd)
+                               + "\n" + res.stdout)
+        os.replace(tmp, so_path)
+        native_build_seconds = time.perf_counter() - t0
+    spec = importlib.util.spec_from_file_location("_hbmpc_native", so_path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    _native = mod
+    return _native

@@ -106,6 +106,11 @@ class FpArray:
         plain = mont.from_mont(self.limbs)
         return limbs_to_ints(plain.cpu().numpy())
 
+    def to_int(self) -> int:
+        """The Python int of a one-element (shape ()) array."""
+        assert self.shape == (), self.shape
+        return int(self.to_ints()[()])
+
     # -- shape plumbing ----------------------------------------------------
     @property
     def shape(self):

@@ -27,7 +27,8 @@ MODULES = ("test_torch_slice_robust_open", "test_torch_rs_fnt",
            "test_torch_band_gemm_epilogues", "test_torch_mont_mul",
            "test_torch_finish_cios", "test_torch_context",
            "test_torch_comparison", "test_torch_mimc_butterfly",
-           "test_torch_refine_triples")
+           "test_torch_refine_triples", "test_torch_fixedpoint",
+           "test_torch_powermixing")
 
 
 def golden(name):

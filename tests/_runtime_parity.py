@@ -27,7 +27,6 @@ import os
 import types
 
 import numpy as np
-import pytest
 import torch
 
 from honeybadgermpc_tpu_torch import interop
@@ -38,18 +37,6 @@ from honeybadgermpc_tpu_torch.ops.limbs import (P, R_MOD_P, int_to_limbs,
 NT = ((4, 1), (7, 2))
 
 
-@pytest.fixture(scope="module", autouse=True)
-def one_torch_thread():
-    """The runtime's CPU programs are thousands of small tensor ops: in a
-    test worker beside others on the same cores, PyTorch's intra-op thread
-    pool costs more than it gains (on an 8-core CPU with every core busy,
-    a [16, 7, 512] plain multiply took 13 ms on one thread and 1.9 s on
-    eight). One thread for the module's tests, the setting restored
-    after."""
-    before = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(before)
 RINV = pow(R_MOD_P, P - 2, P)
 DEALER_SEED = 2029
 
@@ -138,25 +125,28 @@ def _flatten(outs):
 def ref_api():
     import jax.numpy as jnp
 
-    from honeybadgermpc_tpu.models import butterfly, mimc, mimc_symmetric
+    from honeybadgermpc_tpu.models import (butterfly, fixedpoint, mimc,
+                                           mimc_symmetric, powermixing)
     from honeybadgermpc_tpu.ops.fparray import FpArray as RefFpArray
     from honeybadgermpc_tpu.runtime import comparison, context, refinement
     return types.SimpleNamespace(
         context=context, comparison=comparison, mimc=mimc,
         mimc_symmetric=mimc_symmetric, butterfly=butterfly,
-        refinement=refinement,
+        refinement=refinement, fixedpoint=fixedpoint,
+        powermixing=powermixing,
         fp=lambda w: RefFpArray(jnp.asarray(np.asarray(w, np.uint32))))
 
 
 def port_api():
-    from honeybadgermpc_tpu_torch.models import (butterfly, mimc,
-                                                 mimc_symmetric)
+    from honeybadgermpc_tpu_torch.models import (butterfly, fixedpoint, mimc,
+                                                 mimc_symmetric, powermixing)
     from honeybadgermpc_tpu_torch.runtime import (comparison, context,
                                                   refinement)
     return types.SimpleNamespace(
         context=context, comparison=comparison, mimc=mimc,
         mimc_symmetric=mimc_symmetric, butterfly=butterfly,
-        refinement=refinement,
+        refinement=refinement, fixedpoint=fixedpoint,
+        powermixing=powermixing,
         fp=lambda w: FpArray(interop.from_reference_limbs(
             np.asarray(w, np.uint32), "cpu")))
 

@@ -18,6 +18,7 @@ from honeybadgermpc_tpu_torch.ops import fused_open as port_fo
 from honeybadgermpc_tpu_torch.ops.limbs import P
 
 from _jax_memory import release_jax_memory  # noqa: F401
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TILE = bg.STEP_BYTES
 

@@ -36,6 +36,7 @@ from honeybadgermpc_tpu_torch.ops.limbs import P
 
 from _golden import golden
 from _jax_memory import release_jax_memory  # noqa: F401
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TILE = bg.STEP_BYTES
 M32 = 0xFFFFFFFF

@@ -21,6 +21,7 @@ from honeybadgermpc_tpu_torch.ops import limbs as port_limbs
 from honeybadgermpc_tpu_torch.ops.fpmatmul import _vandermonde_int_rows
 
 from _jax_memory import release_jax_memory  # noqa: F401
+from _torch_threads import one_torch_thread  # noqa: F401
 
 P = port_limbs.P
 

@@ -17,7 +17,7 @@ import torch
 
 from _golden import golden
 from _jax_memory import release_jax_memory  # noqa: F401
-from _runtime_parity import one_torch_thread  # noqa: F401
+from _torch_threads import one_torch_thread  # noqa: F401
 from _runtime_parity import (NT, ints, mont_words, opened, plain, port_run,
                              ref_run, scalar, share_words)
 from honeybadgermpc_tpu_torch.ops.fparray import FpArray

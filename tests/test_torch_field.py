@@ -18,6 +18,7 @@ from honeybadgermpc_tpu_torch.ops import montgomery as port_mont
 from honeybadgermpc_tpu_torch.ops.fparray import FpArray
 
 from _jax_memory import release_jax_memory  # noqa: F401
+from _torch_threads import one_torch_thread  # noqa: F401
 
 P = port_limbs.P
 NUM = 48

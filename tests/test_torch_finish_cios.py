@@ -30,6 +30,7 @@ from honeybadgermpc_tpu_torch.ops.limbs import (P, R_MOD_P, ints_to_limbs,
 
 from _golden import golden
 from _jax_memory import release_jax_memory  # noqa: F401
+from _torch_threads import one_torch_thread  # noqa: F401
 
 RINV = pow(R_MOD_P, P - 2, P)
 SPLITS = (1, 2, 4, 8, 16, 32)

@@ -26,6 +26,7 @@ from honeybadgermpc_tpu_torch.ops.rs import Encoding
 
 from _golden import golden
 from _jax_memory import release_jax_memory  # noqa: F401
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _codewords(seed, n, k, batch, bad, zs=None):

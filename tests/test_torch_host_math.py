@@ -14,6 +14,7 @@ from honeybadgermpc_tpu_torch import elliptic_curve as ec
 from honeybadgermpc_tpu_torch import field, polynomial
 
 from _jax_memory import release_jax_memory  # noqa: F401
+from _torch_threads import one_torch_thread  # noqa: F401
 
 P = ec.Subgroup.BLS12_381
 

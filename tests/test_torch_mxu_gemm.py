@@ -21,6 +21,7 @@ from honeybadgermpc_tpu_torch.ops.limbs import P, ints_to_limbs
 
 from _golden import golden
 from _jax_memory import release_jax_memory  # noqa: F401
+from _torch_threads import one_torch_thread  # noqa: F401
 
 TM = mxu.TM
 OCT = TM // 8

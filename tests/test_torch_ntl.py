@@ -18,6 +18,7 @@ from honeybadgermpc_tpu_torch.polynomial import get_omega_int
 
 from _golden import golden
 from _jax_memory import release_jax_memory  # noqa: F401
+from _torch_threads import one_torch_thread  # noqa: F401
 
 P = Subgroup.BLS12_381
 CPU = "cpu"

@@ -27,6 +27,7 @@ from honeybadgermpc_tpu_torch.polynomial import get_omega_int
 from honeybadgermpc_tpu_torch.runtime import refinement
 
 from _jax_memory import release_jax_memory  # noqa: F401
+from _torch_threads import one_torch_thread  # noqa: F401
 
 OMEGA16 = get_omega_int(P, 16, seed=0)
 RINV = pow(R_MOD_P, P - 2, P)

@@ -22,6 +22,7 @@ from honeybadgermpc_tpu_torch.parallel.reconstruct import \
     _sim_reconstruct_packed_jit
 
 from _jax_memory import release_jax_memory  # noqa: F401
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def deal_packed(seed, n, deg, B, points=None):

@@ -27,6 +27,7 @@ from honeybadgermpc_tpu_torch.ops.limbs import (P, R_MOD_P, ints_to_limbs,
                                                 limbs_to_ints)
 
 from _jax_memory import release_jax_memory  # noqa: F401
+from _torch_threads import one_torch_thread  # noqa: F401
 
 RINV = pow(R_MOD_P, P - 2, P)
 SHAPE = (8, 8, 128)                       # n, R, S

@@ -22,7 +22,7 @@ import pytest
 import torch
 
 from _jax_memory import release_jax_memory  # noqa: F401
-from _runtime_parity import one_torch_thread  # noqa: F401
+from _torch_threads import one_torch_thread  # noqa: F401
 from _runtime_parity import NT, plain
 from honeybadgermpc_tpu.ops.fparray import FpArray as RefFpArray
 from honeybadgermpc_tpu.runtime.preprocessing import \

@@ -15,6 +15,7 @@ from honeybadgermpc_tpu_torch.ops.fparray import FpArray
 from honeybadgermpc_tpu_torch.ops.limbs import P, limbs_to_ints
 
 from _jax_memory import release_jax_memory  # noqa: F401
+from _torch_threads import one_torch_thread  # noqa: F401
 
 KEY = (0x1234ABCD, 0x9E3779B9)
 NUMEL = 5000          # not a multiple of the reference kernel's 4096 tile

@@ -15,6 +15,7 @@ from honeybadgermpc_tpu_torch.ops import field_kernels as fk
 from honeybadgermpc_tpu_torch.ops.limbs import P
 
 from _jax_memory import release_jax_memory  # noqa: F401
+from _torch_threads import one_torch_thread  # noqa: F401
 
 KEY = (0x1234ABCD, 0x9E3779B9)
 M32 = 0xFFFFFFFF

@@ -23,6 +23,7 @@ from honeybadgermpc_tpu_torch.ops.limbs import (P, ints_to_limbs,
                                                 limbs_to_ints)
 
 from _jax_memory import release_jax_memory  # noqa: F401
+from _torch_threads import one_torch_thread  # noqa: F401
 
 N, T, K = 8, 2, 128
 POINTS = tuple(range(1, N + 1))

@@ -29,6 +29,7 @@ from honeybadgermpc_tpu_torch.ops.limbs import L, P, W, limbs_to_ints
 
 from _golden import golden
 from _jax_memory import release_jax_memory  # noqa: F401
+from _torch_threads import one_torch_thread  # noqa: F401
 
 N, T, K = 8, 2, 128
 N_OUT, N_OUTP, NCHECK, NCHECKP = N - 2 * T, 8, 2 * T, 8

@@ -15,7 +15,7 @@ import torch
 
 from _golden import golden
 from _jax_memory import release_jax_memory  # noqa: F401
-from _runtime_parity import one_torch_thread  # noqa: F401
+from _torch_threads import one_torch_thread  # noqa: F401
 from _runtime_parity import NT, ints, opened, port_run, ref_run, share_words
 from honeybadgermpc_tpu_torch.interop import to_reference_limbs
 from honeybadgermpc_tpu_torch.ops.fparray import FpArray

@@ -25,6 +25,7 @@ from honeybadgermpc_tpu_torch.ops.limbs import P, R_MOD_P, ints_to_limbs
 
 from _golden import golden
 from _jax_memory import release_jax_memory  # noqa: F401
+from _torch_threads import one_torch_thread  # noqa: F401
 
 SUBSETS = [(7, (0, 1, 2)), (7, (1, 3, 6)), (7, (4, 2, 5)),
            (16, (15, 0, 7, 3, 9, 12))]

@@ -22,6 +22,7 @@ from honeybadgermpc_tpu_torch.runtime.refinement import refine_randoms
 
 from _golden import golden
 from _jax_memory import release_jax_memory  # noqa: F401
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _run(api, **kw):

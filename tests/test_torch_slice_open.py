@@ -36,6 +36,7 @@ from honeybadgermpc_tpu_torch.runtime.preprocessing import \
     PreProcessedElements
 
 from _jax_memory import release_jax_memory  # noqa: F401
+from _torch_threads import one_torch_thread  # noqa: F401
 
 N, T, B = 8, 2, 9
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")

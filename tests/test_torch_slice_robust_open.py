@@ -41,6 +41,7 @@ from honeybadgermpc_tpu_torch.parallel.mesh import SimBackend
 
 from _golden import golden
 from _jax_memory import release_jax_memory  # noqa: F401
+from _torch_threads import one_torch_thread  # noqa: F401
 
 RINV = pow(R_MOD_P, P - 2, P)
 

@@ -31,6 +31,7 @@ from honeybadgermpc_tpu_torch.ops.limbs import (P, R_MOD_P, ints_to_limbs,
 
 from _golden import golden
 from _jax_memory import release_jax_memory  # noqa: F401
+from _torch_threads import one_torch_thread  # noqa: F401
 
 RINV = pow(R_MOD_P, P - 2, P)
 EDGE = [0, 1, 2, P - 1, P - 2, 4, 5, (P - 1) // 2]

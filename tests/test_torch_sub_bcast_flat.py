@@ -25,6 +25,7 @@ from honeybadgermpc_tpu_torch.ops.limbs import (P, R_MOD_P, ints_to_limbs,
                                                 limbs_to_ints)
 
 from _jax_memory import release_jax_memory  # noqa: F401
+from _torch_threads import one_torch_thread  # noqa: F401
 
 EDGE = [0, 1, P - 1, P - 2, R_MOD_P, (1 << 255) % P, 0xFFFF, P >> 1]
 

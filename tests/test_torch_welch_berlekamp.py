@@ -19,6 +19,7 @@ from honeybadgermpc_tpu_torch.ops.limbs import P, R_MOD_P, ints_to_limbs
 from honeybadgermpc_tpu_torch.ops.rs import Encoding
 
 from _jax_memory import release_jax_memory  # noqa: F401
+from _torch_threads import one_torch_thread  # noqa: F401
 
 
 def _draw(rng):
