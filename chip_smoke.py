@@ -42,7 +42,10 @@ n=64, t=21:
     ``FixedPointArray`` multiply of 4,096 values, ``lt``, ``trunc`` and
     ``div2m`` of 1,024, the bench's power-mix epochs at k = 64 and 256,
     its butterfly epoch at k = 1,024 with the triple refill, and one
-    event-driven epoch through the coordinator.
+    event-driven epoch through the coordinator;
+  * the fused runner — the bench's Jubjub programs (add + double at
+    B = 64 and 4,096, a 16-bit scalar ladder at B = 64) replayed as CUDA
+    graphs and called eagerly, and the MiMC-Jubjub PKC round trip.
 
 The first run builds the kernels from ``honeybadgermpc_tpu_torch/csrc``
 into ``honeybadgermpc_tpu_torch/build``.
@@ -204,6 +207,27 @@ right after the offline kernels of phase 8, 18 and 19 right after 10):
               epoch's messages/s online and with the refill of rounds * k
               = 102,400 triples at phase 10's triple rate, and the offline
               fraction; the phase's seconds
+ 23 fused     with the launch counts as in 20: the bench's jubjub_add_double
+              program through run_fused (a CUDA graph captured once per
+              shape, replayed per call) at B = 64 and 4,096 on the points
+              i*GP, opened against 3*P_i and word for word against the
+              program called eagerly on the same pool slices; a second
+              call hits the cache (no capture, fresh pools); a replay
+              after the public-constant cache was cleared and 4,096 junk
+              tensors allocated (the graph pins what it reads); the
+              argument shares of 21 parties falsified: one eager redo
+              with robust opens, the honest points; jubjub_mul_jit(0xFFFF)
+              at B = 64 (16 replays of one ladder step) against
+              0xFFFF*P_i and word for word against its step looped
+              eagerly, and the eager montgomery_mul against 0xFFFF*P_i;
+              share_mul of a 64-bit shared key against key*GP;
+              key_generation, mimc_encrypt of 64 messages and
+              mimc_decrypt round trip; no plain version on the card. Then (``fused_timing``) both bench rows
+              (point_ops_per_s = 2B/dt, muls_per_s = B/dt) eager (the
+              program itself; the ladder step looped over the bits) and
+              replayed, each with kernels per call, device busy and peak
+              bytes, the first call's build (counting pass, warm-up,
+              capture) apart, the phase's seconds
 
 The last line of the output is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -1453,15 +1477,16 @@ def phase_kernels_robust(dev):
         int_mm_ms
 
 
-def device_busy_ms(fn, top=0):
+def device_busy_ms(fn, top=0, cpu=True):
     """Device time of one call of fn(), summed over every CUDA kernel the
     profiler saw, and the number of kernel launches; with top > 0 also the
     `top` kernels by device time {name: ms}. A lower bound where the
-    profiler drops events."""
+    profiler drops events. cpu=False traces the device alone (a call of
+    hundreds of thousands of launches then costs the profiler less)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CPU] if cpu else []
+    with profile(activities=acts + [ProfilerActivity.CUDA]) as prof:
         fn()
         sync()
     us, count, by_name = 0.0, 0, {}
@@ -2797,18 +2822,20 @@ def rt_check_clean(what):
           f"{what}: plain versions ran on the card: {plain}")
 
 
-def rt_profile(fn):
+def rt_profile(fn, cpu=True):
     """Device-busy ms, kernel launches and the top kernels of one call."""
-    busy, count, top = device_busy_ms(fn, 12)
+    busy, count, top = device_busy_ms(fn, 12, cpu)
+    check(count > 0, "the profiler saw no kernel of the call")
     return {"device_busy_ms": busy, "kernel_launches": count,
             "device_ms_top_kernels": top}
 
 
-def rt_timed(fn, units, count, reps, deal=lambda: None):
+def rt_timed(fn, units, count, reps, deal=lambda: None, cpu=True):
     """Host-clock ms per call over `reps` calls (each ends in a
     synchronize) and the rate; the peak bytes of one more call above what
-    was allocated before it, and its device profile. `deal` fills the
-    pools before each call, outside its window; nothing else draws."""
+    was allocated before it, and its device profile (`cpu` as for
+    device_busy_ms). `deal` fills the pools before each call, outside its
+    window; nothing else draws."""
     secs = 0.0
     for _ in range(reps):
         deal()
@@ -2824,7 +2851,7 @@ def rt_timed(fn, units, count, reps, deal=lambda: None):
     deal()
     sync()
     return {"ms_per_call": ms, units: count / ms * 1e3,
-            "peak_bytes_per_call": peak, **rt_profile(fn)}
+            "peak_bytes_per_call": peak, **rt_profile(fn, cpu)}
 
 
 def beaver_breakdown(ctx, x, y):
@@ -3333,6 +3360,295 @@ def phase_apps(dev, triples_per_s):
     return launches, timing
 
 
+# -- phase 23: the fused runner (CUDA graphs), Jubjub and the PKC -------------
+
+JJ_B = 64                         # the bench's batch (run_benchmarks.py:262)
+JJ_BIG = 4096
+JJ_SCALAR = 0xFFFF                # jubjub_scalar_mul16's 16-bit ladder
+PKC_BITS, PKC_MSGS = 64, 64
+FUSED_REPS = 3
+
+
+def _jubjub_add_double(c, px, py):
+    """The bench's program (benchmark/run_benchmarks.py:242-246)."""
+    from honeybadgermpc_tpu_torch.models.jubjub import SharedPoint
+    pt = SharedPoint(c, c.ShareArray(px.v, px.t), c.ShareArray(py.v, py.t))
+    out = pt.add(pt.double())
+    return out.xs, out.ys
+
+
+def _eager_ladder(ctx, sp, scalar):
+    """The program jubjub_mul_jit replays, called eagerly on ctx: its
+    ladder step looped over the scalar's bits (MSB first)."""
+    from honeybadgermpc_tpu_torch.models.jubjub import (SharedPoint,
+                                                        _ladder_step)
+    from honeybadgermpc_tpu_torch.elliptic_curve import Point
+    bits = torch.tensor([(scalar >> i) & 1
+                         for i in reversed(range(scalar.bit_length()))],
+                        dtype=torch.int32, device=ctx.device)
+    ident = SharedPoint.from_point(ctx, Point(0, 1, sp.curve),
+                                   sp.xs.v.shape[ctx.lead:])
+    carry = (ident.xs, ident.ys, sp.xs, sp.ys)
+    for bit in bits:
+        carry = _ladder_step(ctx, carry, bit)
+    return SharedPoint(ctx, carry[0], carry[1], sp.curve)
+
+
+def multiples(base, count):
+    """[i * base for i = 1..count] on the host, one curve addition each."""
+    pts, acc = [], base
+    for _ in range(count):
+        pts.append(acc)
+        acc = acc + base
+    return pts
+
+
+def share_points(ctx, pts):
+    """Degree-t shares of the points' coordinates (the port's dealer)."""
+    return (rt_share(ctx, [int(q.x) for q in pts]),
+            rt_share(ctx, [int(q.y) for q in pts]))
+
+
+def opened_points(xs, ys):
+    """Open two coordinate ShareArrays [n, B] in one open -> [(x, y)]."""
+    ox, oy = xs.ctx.open_share_arrays([xs, ys])
+    return list(zip(party0_ints(ox), party0_ints(oy)))
+
+
+def coords(pts):
+    return [(int(q.x), int(q.y)) for q in pts]
+
+
+def top_up(pre, demand, calls=1):
+    """Deal each kind until the pool holds `calls` times the demand."""
+    for kind, c in demand.items():
+        need = c * calls - pre._pool(kind).remaining()
+        if need > 0:
+            getattr(pre, "generate_" + kind)(need)
+
+
+def pool_state(pre):
+    return {k: (list(p.segs), p.cursor) for k, p in pre._pools.items()}
+
+
+def restore_pools(pre, state):
+    for k, (segs, cursor) in state.items():
+        pool = pre._pool(k)
+        pool.segs, pool.cursor = list(segs), cursor
+
+
+def replay_name(key):
+    """A fused cache key -> "<program> B=<batch>" ("scan <step> ..." for a
+    scan's step)."""
+    if key[0] == "scan":
+        return f"scan {key[1].__name__} B={key[7][0][0][-1]}"
+    return f"{key[0].__name__} B={key[-1][0][0][-1]}"
+
+
+def phase_fused(dev):
+    """The fused runner at n=64, t=21 (robust opens): the bench's
+    jubjub_add_double program through run_fused at B = 64 and 4,096 on
+    distinct points i*GP (a captured CUDA graph replayed per call) against
+    the host oracle 3*P_i and word for word against the same program
+    called eagerly on the same pool slices; jubjub_mul_jit(0xFFFF) at
+    B = 64 (one captured ladder step replayed 16 times) against
+    0xFFFF*P_i and word for word against its step looped eagerly on the
+    same pool slices, and the eager montgomery_mul against 0xFFFF*P_i;
+    share_mul of a 64-bit shared key and the PKC round trip of 64
+    messages; a call whose argument shares 21 parties falsified (redone
+    eagerly with robust opens); a cache hit, and a replay after the
+    public-constant cache was cleared and junk allocated. Launch counts set to 0 just before and read after; then
+    (``fused_timing``) both bench rows eager and replayed, pools dealt
+    outside every window."""
+    from honeybadgermpc_tpu_torch.elliptic_curve import Point
+    from honeybadgermpc_tpu_torch.models import mimc_jubjub_pkc as pkc
+    from honeybadgermpc_tpu_torch.models.jubjub import (SharedPoint,
+                                                        jubjub_mul_jit,
+                                                        share_mul)
+    from honeybadgermpc_tpu_torch.ops import fparray
+    from honeybadgermpc_tpu_torch.runtime import fused
+    from honeybadgermpc_tpu_torch.runtime.context import MpcContext
+    t_start = time.perf_counter()
+    pre = PreProcessedElements(N, T, seed=1518, device=dev)
+    ctx = MpcContext(N, T, preproc=pre, device=dev)
+    gp = pkc.GP
+    sync()
+    reset_launches()
+    rows, timing = {}, {}
+    captures0, replays0 = fused.captures, fused.graph_replays
+    redos0 = fused.fused_redos
+
+    # add + double: fused against the oracle and the eager words
+    demand = {}
+    for B in (JJ_B, JJ_BIG):
+        pts = multiples(gp, B)
+        want = coords(multiples(gp * 3, B))
+        px, py = share_points(ctx, pts)
+        sync()
+        base = torch.cuda.memory_allocated()
+        dem, build_s = host_timed(
+            lambda: fused.fused_demand(ctx, _jubjub_add_double, px, py))
+        graph_bytes = torch.cuda.memory_allocated() - base
+        demand[B] = dem
+        top_up(pre, dem)
+        state = pool_state(pre)
+        (fx, fy), first_s = host_timed(
+            lambda: fused.run_fused(ctx, _jubjub_add_double, px, py))
+        check(opened_points(fx, fy) == want,
+              f"run_fused add_double B={B}: != 3*P_i")
+        restore_pools(pre, state)
+        (ex, ey), eager_s = host_timed(
+            lambda: _jubjub_add_double(ctx, px, py))
+        check(torch.equal(ex.v.limbs, fx.v.limbs)
+              and torch.equal(ey.v.limbs, fy.v.limbs),
+              f"run_fused add_double B={B}: words != the eager call's")
+        check(all(pre._pool(k).remaining() == 0 for k in dem),
+              f"add_double B={B}: took other than its demand")
+        rows[f"add_double_B{B}"] = {
+            "B": B, "demand": dem, "build_ms": build_s * 1e3,
+            "first_replay_ms": first_s * 1e3, "eager_ms": eager_s * 1e3,
+            "graph_pool_bytes": graph_bytes, "points_checked": B}
+        if B == JJ_B:
+            keep = (px, py, want)
+    check(fused.captures - captures0 == 2, "add_double: not one capture "
+          "per shape")
+
+    # a second call with the same shapes: a cache hit on fresh pools
+    px, py, want = keep
+    top_up(pre, demand[JJ_B])
+    caps = fused.captures
+    (fx, fy), _ = host_timed(
+        lambda: fused.run_fused(ctx, _jubjub_add_double, px, py))
+    check(fused.captures == caps, "the second call captured again")
+    check(all(pre._pool(k).remaining() == 0 for k in demand[JJ_B]),
+          "the second call did not take fresh pools")
+    check(opened_points(fx, fy) == want, "cache hit: != 3*P_i")
+
+    # the graphs pin the public constants they read: drop them from the
+    # bounded cache, let junk take any freed block, replay again
+    fparray._scalar_const.cache_clear()
+    junk = [torch.full((L,), -1, dtype=torch.int32, device=dev)
+            for _ in range(4096)]
+    top_up(pre, demand[JJ_B])
+    fx, fy = fused.run_fused(ctx, _jubjub_add_double, px, py)
+    check(fused.captures == caps, "the call after the cache clear captured")
+    check(opened_points(fx, fy) == want,
+          "a replay after the constant cache was cleared: != 3*P_i")
+    del junk
+
+    # 21 lying parties in the argument shares: detect, then the eager redo
+    bad = [ctx.ShareArray(rec.inject_share_faults(
+        s.v, SimBackend(N).my_ids(dev), BAD_PARTIES, (1518, i)))
+        for i, s in enumerate((px, py))]
+    top_up(pre, demand[JJ_B])
+    redos = fused.fused_redos
+    (fx, fy), redo_s = host_timed(
+        lambda: fused.run_fused(ctx, _jubjub_add_double, *bad))
+    check(fused.fused_redos == redos + 1, "faulted call: not one redo")
+    check(fused.captures == caps, "faulted call: captured again")
+    check(opened_points(fx, fy) == want, "faulted call: != 3*P_i")
+    rows["faulted_add_double"] = {"B": JJ_B, "lying_parties":
+                                  len(BAD_PARTIES), "ms": redo_s * 1e3}
+
+    # the 16-bit ladder: one captured step replayed per bit
+    pts = multiples(gp, JJ_B)
+    want16 = coords(multiples(gp * JJ_SCALAR, JJ_B))
+    sp = SharedPoint(ctx, *share_points(ctx, pts))
+    top_up(pre, demand[JJ_B], 16)
+    state = pool_state(pre)
+    reps = fused.graph_replays
+    q, ladder_s = host_timed(lambda: jubjub_mul_jit(ctx, sp, JJ_SCALAR))
+    check(fused.graph_replays - reps == 16, "jubjub_mul_jit: not 16 "
+          "replays of its step")
+    check(opened_points(q.xs, q.ys) == want16, "jubjub_mul_jit: != 0xFFFF*P")
+    restore_pools(pre, state)
+    el = _eager_ladder(ctx, sp, JJ_SCALAR)
+    check(torch.equal(el.xs.v.limbs, q.xs.v.limbs)
+          and torch.equal(el.ys.v.limbs, q.ys.v.limbs),
+          "jubjub_mul_jit: words != its ladder step looped eagerly")
+    top_up(pre, demand[JJ_B], 16)
+    q, mont_s = host_timed(lambda: sp.montgomery_mul(JJ_SCALAR))
+    check(opened_points(q.xs, q.ys) == want16, "montgomery_mul: != 0xFFFF*P")
+    rows["scalar_mul16"] = {"B": JJ_B, "first_call_ms": ladder_s * 1e3,
+                            "montgomery_mul_ms": mont_s * 1e3}
+
+    # share_mul of a 64-bit shared key, then the PKC round trip
+    key = rt_values(60, 1, 1 << PKC_BITS)[0]
+    sbits = rt_share(ctx, [(key >> i) & 1 for i in range(PKC_BITS)])
+    sbits = ctx.ShareArray(sbits.v.reshape(N, 1, PKC_BITS))
+    pre.generate_triples(9 * PKC_BITS)
+    pre.generate_rands(2 * PKC_BITS)
+    q = share_mul(ctx, sbits, gp)
+    check(opened_points(q.xs, q.ys) == coords([gp * key]),
+          "share_mul: != key*GP")
+    pre.generate_bits(PKC_BITS)
+    pre.generate_triples(18 * PKC_BITS)
+    pre.generate_rands(4 * PKC_BITS)
+    (priv, pub), keygen_s = host_timed(
+        lambda: pkc.key_generation(ctx, key_bits=PKC_BITS))
+    x = sum(b << i for i, b in enumerate(party0_ints(priv.open())))
+    check((int(pub.x), int(pub.y)) == coords([gp * x])[0],
+          "key_generation: the public key is not x*GP")
+    msgs = rt_values(61, PKC_MSGS)
+    kg, cts = pkc.mimc_encrypt(pub, msgs, rt_values(62, 1, 1 << 64)[0])
+    got, dec_s = host_timed(lambda: pkc.mimc_decrypt(ctx, priv, kg, cts))
+    check(got == msgs, "mimc_decrypt: not the messages sent")
+    rows["pkc"] = {"key_bits": PKC_BITS, "messages": PKC_MSGS,
+                   "key_generation_ms": keygen_s * 1e3,
+                   "decrypt_ms": dec_s * 1e3}
+
+    sync()
+    launches = read_launches()
+    rt_check_clean("fused phase")
+    for name in RUNTIME_KERNELS:
+        check(launches[name] > 0, f"the fused path never ran {name}")
+    check(fused.captures - captures0 == 3 and fused.graph_replays
+          - replays0 == 5 + 16, "the replays did not go through graphs")
+    check(fused.fused_redos - redos0 == 1, "honest calls were redone")
+    check(ctx.nerr_total.tolist() == [0] * N, "honest eager calls: nerr")
+    per_replay = {replay_name(k): v
+                  for k, v in fused.launches_per_replay.items()}
+    say("fused", ok=True, n=N, t=T, checks=rows,
+        captures=fused.captures - captures0,
+        graph_replays=fused.graph_replays - replays0,
+        fused_redos=fused.fused_redos - redos0,
+        wrapper_launches_per_replay=per_replay,
+        launches={k: v for k, v in launches.items() if v},
+        seconds=time.perf_counter() - t_start)
+
+    # timing: both bench rows eager and replayed, pools dealt outside
+    dem = demand[JJ_B]
+    timing["jubjub_add_double"] = {
+        "B": JJ_B,
+        "eager": rt_timed(lambda: _jubjub_add_double(ctx, px, py),
+                          "point_ops_per_s", 2 * JJ_B, FUSED_REPS,
+                          lambda: top_up(pre, dem, 2)),
+        "replay": rt_timed(
+            lambda: fused.run_fused(ctx, _jubjub_add_double, px, py),
+            "point_ops_per_s", 2 * JJ_B, FUSED_REPS,
+            lambda: top_up(pre, dem, 2)),
+        "build_ms": rows[f"add_double_B{JJ_B}"]["build_ms"]}
+    # the ladder is about 268,000 launches a call: one timed eager call,
+    # and the profiler traces the device alone
+    timing["jubjub_scalar_mul16"] = {
+        "B": JJ_B,
+        "eager": rt_timed(lambda: _eager_ladder(ctx, sp, JJ_SCALAR),
+                          "muls_per_s", JJ_B, 1,
+                          lambda: top_up(pre, dem, 32), cpu=False),
+        "replay": rt_timed(lambda: jubjub_mul_jit(ctx, sp, JJ_SCALAR),
+                           "muls_per_s", JJ_B, FUSED_REPS,
+                           lambda: top_up(pre, dem, 32), cpu=False),
+        "first_call_ms": ladder_s * 1e3}
+    for row in ("jubjub_add_double", "jubjub_scalar_mul16"):
+        e, r = timing[row]["eager"], timing[row]["replay"]
+        timing[row]["replay_speedup"] = e["ms_per_call"] / r["ms_per_call"]
+    timing["wrapper_launches_per_replay"] = per_replay
+    del keep, bad, sp, q, el
+    torch.cuda.empty_cache()
+    timing["seconds"] = time.perf_counter() - t_start
+    return launches, timing
+
+
 def ptxas_core(log):
     """Registers and spill bytes of the kernels on csrc/band_gemm.cuh, of
     the sampler and of rows 7 and 12, from ptxas' report in the build log:
@@ -3387,7 +3703,8 @@ def ptxas_core(log):
 
 def kernels_line(times, err, launches, launches_triples, launches_robust,
                  launches_programs, launches_ntl, launches_pc,
-                 launches_runtime, launches_apps, int_mm_ms):
+                 launches_runtime, launches_apps, launches_fused,
+                 int_mm_ms):
     """The rows of the `kernels` JSON line, one per kernel: its source, the
     TPU kernel it replaces, launches on its path, times and bound."""
     meta = {
@@ -3507,7 +3824,8 @@ def kernels_line(times, err, launches, launches_triples, launches_robust,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
             "shape": shape, "share_of_bound": bound_ms / ms,
             "launches_runtime": launches_runtime[name],
-            "launches_apps": launches_apps[name]}
+            "launches_apps": launches_apps[name],
+            "launches_fused": launches_fused[name]}
         if name == "randousha_deal":
             row["launches_per_column_call"] = launches_pc[name]
         if name in ("open_direct", "mont_mul"):
@@ -3650,10 +3968,13 @@ def main():
                         for k in launches_rt}
     launches_apps, apps_timing = phase_apps(dev, trip["triples_per_s"])
     say("apps_timing", card=card, **apps_timing)
+    launches_fused, fused_timing = phase_fused(dev)
+    say("fused_timing", card=card, **fused_timing)
 
     kernels = kernels_line(times, err, launches, launches_triples,
                            launches_robust, launches_programs, launches_ntl,
                            launches_pc, launches_runtime, launches_apps,
+                           launches_fused,
                            int_mm_ms)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

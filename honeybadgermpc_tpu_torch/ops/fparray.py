@@ -10,13 +10,14 @@ no jitted entry points.
 
 from __future__ import annotations
 
+from contextlib import contextmanager
 from functools import lru_cache
 
 import numpy as np
 import torch
 
 from . import montgomery as mont
-from .limbs import L, P, int_to_limbs, ints_to_limbs, limbs_to_ints
+from .limbs import L, P, R_MOD_P, int_to_limbs, ints_to_limbs, limbs_to_ints
 
 _CUDA = torch.device("cuda")
 
@@ -43,6 +44,53 @@ def dev_const(builder, args: tuple, device):
     return _to_tensor(builder(*args), device)
 
 
+@lru_cache(maxsize=None)
+def mont_limbs_np(values: tuple) -> np.ndarray:
+    """Host: Montgomery-form limbs np.uint32 [L, len(values)] of the ints
+    `values` (each reduced mod p); the words ``from_ints`` makes."""
+    return ints_to_limbs(np.array([int(v) % P * R_MOD_P % P
+                                   for v in values], dtype=object))
+
+
+@lru_cache(maxsize=4096)
+def _scalar_const(x: int, device) -> torch.Tensor:
+    return _to_tensor(int_to_limbs(int(x) % P * R_MOD_P % P),
+                      torch.device(device))
+
+
+_pins = None        # a dict while pin_constants() is open
+
+
+def scalar_const(x: int, device) -> torch.Tensor:
+    """int32 [L]: the Montgomery limbs of the public constant x (reduced
+    mod p) on `device`, cached per (value, device) in a bounded LRU cache.
+    A program's public constants are copied to the device once, so a warm
+    program issues no host-to-device copy (a CUDA graph capture allows
+    none). Callers never write into the result. Inside
+    ``pin_constants()`` every tensor handed out is also kept there."""
+    t = _scalar_const(x, device)
+    if _pins is not None:
+        _pins[id(t)] = t
+    return t
+
+
+@contextmanager
+def pin_constants():
+    """Collect every ``scalar_const`` tensor handed out in the block into
+    the dict yielded. A CUDA graph captured in the block reads their
+    addresses on every replay, but the LRU cache may drop and free them,
+    so the graph's owner keeps the dict for as long as the graph lives."""
+    global _pins
+    outer, _pins = _pins, {}
+    pins = _pins
+    try:
+        yield pins
+    finally:
+        _pins = outer
+        if outer is not None:
+            outer.update(pins)
+
+
 class FpArray:
     """Array of field elements; shape excludes the limb axis."""
 
@@ -65,16 +113,18 @@ class FpArray:
 
     @classmethod
     def from_int(cls, x: int, shape=(), device=_CUDA):
-        """x at every element of `shape`: one limb vector (Montgomery form
-        computed on the host) broadcast on the device."""
+        """x at every element of `shape`: the cached device limb vector of
+        x (``scalar_const``) broadcast into a new tensor on the device."""
         shape = tuple(shape)
-        one = _to_tensor(int_to_limbs(pow(2, 256, P) * x % P), device)
+        one = scalar_const(x, device)
         return cls(one.reshape((L,) + (1,) * len(shape)).expand(
-            (L,) + shape).contiguous())
+            (L,) + shape).clone(memory_format=torch.contiguous_format))
 
     @classmethod
     def zeros(cls, shape=(), device=_CUDA):
-        return cls.from_int(0, shape, device)
+        """Zero is all-zero limbs in Montgomery form: one fill."""
+        return cls(torch.zeros((L,) + tuple(shape), dtype=torch.int32,
+                               device=torch.device(device)))
 
     @classmethod
     def ones(cls, shape=(), device=_CUDA):
@@ -172,7 +222,7 @@ class FpArray:
         if isinstance(other, FpArray):
             return other
         if isinstance(other, int):
-            return FpArray.from_int(other, device=self.device)
+            return FpArray(scalar_const(other, self.device))
         return NotImplemented
 
     def __add__(self, other):

@@ -19,8 +19,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .limbs import (L, MASK, N0, P, P_LIMBS, R2_MOD_P_LIMBS, R_MOD_P_LIMBS,
-                    W, int_to_limbs)
+from .limbs import (L, MASK, N0, P, P_LIMBS, R2_MOD_P_LIMBS, R_MOD_P,
+                    R_MOD_P_LIMBS, W, int_to_limbs, ints_to_limbs,
+                    limbs_to_ints)
 
 _P = [int(x) for x in P_LIMBS]
 
@@ -261,8 +262,27 @@ def pow_const(a, e: int):
 
 def inv_mod(a):
     """Batched modular inverse via Fermat: a^(p-2); inv(0) = 0 (callers
-    mask)."""
-    return pow_const(a, P - 2)
+    mask). On a CUDA tensor the square-and-multiply chain of ``pow_const``
+    (385 launches of the mont_mul kernel); on a CPU tensor the same
+    canonical words from Python's ``pow`` on the host (``_inv_mod_host``),
+    where the chain's plain multiplies cost about a second per call."""
+    if a.is_cuda:
+        return pow_const(a, P - 2)
+    return _inv_mod_host(a)
+
+
+_RINV = pow(R_MOD_P, P - 2, P)
+
+
+def _inv_mod_host(a):
+    """inv_mod of a CPU limb tensor int32 [L, ...]: for the Montgomery word
+    w = xR the chain's result is x^(p-2) R = x^-1 R mod p (0 for 0)."""
+    w = limbs_to_ints(a.contiguous().numpy().view(np.uint32))
+    inv = np.vectorize(
+        lambda v: pow(int(v) * _RINV % P, P - 2, P) * R_MOD_P % P,
+        otypes=[object])(w)
+    return torch.from_numpy(ints_to_limbs(inv).view(np.int32)).reshape(
+        a.shape)
 
 
 # Tonelli-Shanks static data: p - 1 = q * 2^s with s = 32; nonresidue z = 5.

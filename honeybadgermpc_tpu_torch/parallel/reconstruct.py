@@ -210,7 +210,8 @@ def _sim_reconstruct_jit(n: int, t: int, use_omega_powers: bool,
 
 
 def sim_batch_reconstruct(shares: FpArray, n: int, t: int,
-                          use_omega_powers: bool = False, robust: bool = True):
+                          use_omega_powers: bool = False, robust: bool = True,
+                          tally=None):
     """SimBackend batch open of shares [n, ..., B] -> (secrets [n, ..., B],
     nerr), on the device the shares lie on. Robust opens are TWO-PHASE, as
     the reference runs them on the accelerator: a detect-only open, then,
@@ -223,7 +224,14 @@ def sim_batch_reconstruct(shares: FpArray, n: int, t: int,
     [n, ...], as the reference's generic program returns it: each row's
     count from the redo where it ran, else the detect-only counts, which
     are charged to the source party and do not split into rows, each in
-    its party's first row."""
+    its party's first row.
+
+    ``tally`` (an int32 [1] device tensor) marks an open inside a program
+    (a fused replay, runtime/fused.py): a robust open is then detect-only,
+    adds its mismatch count into ``tally`` and reads nothing on the host;
+    the program's runner redoes the whole call robustly when the tally is
+    nonzero. The reference keeps its in-graph Gao fallback there instead
+    (its ``lax.cond``); the words of the redone call are the same."""
     shp = tuple(shares.shape)
     mid = shp[1:-1]
     flat = shares.limbs.reshape(L, n, -1) if mid else shares.limbs
@@ -232,7 +240,9 @@ def sim_batch_reconstruct(shares: FpArray, n: int, t: int,
     limbs, nerr = run(flat)
     if getattr(run, "packed", False):
         limbs = unpack_limbs(limbs)
-    found = robust and int(nerr.sum()) != 0
+    if robust and tally is not None:
+        tally.add_(nerr.sum().to(torch.int32))
+    found = robust and tally is None and int(nerr.sum()) != 0
     if mid:
         rows = torch.zeros((n, flat.shape[-1] // shp[-1]), dtype=torch.int32,
                            device=shares.device)

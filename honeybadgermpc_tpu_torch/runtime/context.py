@@ -27,7 +27,7 @@ import os
 import numpy as np
 import torch
 
-from ..ops.fparray import FpArray
+from ..ops.fparray import FpArray, scalar_const
 from ..ops.limbs import P
 from ..parallel.mesh import SimBackend
 from ..parallel.reconstruct import sim_batch_reconstruct
@@ -66,7 +66,7 @@ class ShareArray:
 
     def _coerce_public(self, other):
         if isinstance(other, int):
-            return FpArray.from_int(other, device=self.ctx.device)
+            return FpArray(scalar_const(other, self.ctx.device))
         if isinstance(other, FpArray):
             return other
         return None
@@ -355,8 +355,10 @@ DEFAULT_MIXINS = {
 def _assert_party_agreement(secrets: FpArray):
     """Every simulated party decodes an open on its own, so a per-party
     decode divergence would be invisible to a program that reads party 0's
-    view: check that all parties agree (one host read per open). Off with
-    the reference's switch HBMPC_NO_AGREEMENT_CHECK."""
+    view: check that all parties agree (one host read per open). Eager
+    opens only: skipped inside a program, as the reference skips it under
+    trace, and off with the reference's switch
+    HBMPC_NO_AGREEMENT_CHECK."""
     if os.environ.get("HBMPC_NO_AGREEMENT_CHECK"):
         return
     lim = secrets.limbs                      # [L, n, ...]
@@ -399,6 +401,12 @@ class MpcContext:
         # per-party corrected-error tally, summed over every open
         self.nerr_total = torch.zeros(n, dtype=torch.int32,
                                       device=self.device)
+        # None in an eager context. Inside a program (a fused replay,
+        # runtime/fused.py): an int32 [1] device tensor; every robust open
+        # is then detect-only, adds its mismatch count into it and reads
+        # nothing on the host, and the runner redoes the call robustly
+        # when it is nonzero
+        self.tally = None
 
     @property
     def local_parties(self) -> int:
@@ -457,8 +465,9 @@ class MpcContext:
                 [v, FpArray.zeros(v.shape[:-1] + (pad,), v.device)],
                 axis=v.ndim - 1)
         secrets, nerr = sim_batch_reconstruct(
-            v, self.n, d, self.use_omega_powers, self.robust)
-        _assert_party_agreement(secrets)
+            v, self.n, d, self.use_omega_powers, self.robust, self.tally)
+        if self.tally is None:
+            _assert_party_agreement(secrets)
         self.opened_count += B
         self.nerr_total = self.nerr_total + \
             nerr.reshape(self.n, -1).sum(-1).to(torch.int32)

@@ -28,7 +28,8 @@ MODULES = ("test_torch_slice_robust_open", "test_torch_rs_fnt",
            "test_torch_finish_cios", "test_torch_context",
            "test_torch_comparison", "test_torch_mimc_butterfly",
            "test_torch_refine_triples", "test_torch_fixedpoint",
-           "test_torch_powermixing")
+           "test_torch_powermixing", "test_torch_fused",
+           "test_torch_jubjub")
 
 
 def golden(name):

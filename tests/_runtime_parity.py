@@ -125,28 +125,42 @@ def _flatten(outs):
 def ref_api():
     import jax.numpy as jnp
 
-    from honeybadgermpc_tpu.models import (butterfly, fixedpoint, mimc,
+    from honeybadgermpc_tpu import elliptic_curve
+    from honeybadgermpc_tpu.models import (butterfly, fixedpoint, jubjub,
+                                           mimc, mimc_jubjub_pkc,
                                            mimc_symmetric, powermixing)
     from honeybadgermpc_tpu.ops.fparray import FpArray as RefFpArray
-    from honeybadgermpc_tpu.runtime import comparison, context, refinement
+    from honeybadgermpc_tpu.runtime import (comparison, context, fused,
+                                            refinement)
     return types.SimpleNamespace(
         context=context, comparison=comparison, mimc=mimc,
         mimc_symmetric=mimc_symmetric, butterfly=butterfly,
         refinement=refinement, fixedpoint=fixedpoint,
-        powermixing=powermixing,
+        powermixing=powermixing, fused=fused, jubjub=jubjub,
+        pkc=mimc_jubjub_pkc, curve=elliptic_curve, FpArray=RefFpArray,
+        raw=lambda w: jnp.asarray(np.asarray(w, np.uint32)),
         fp=lambda w: RefFpArray(jnp.asarray(np.asarray(w, np.uint32))))
 
 
 def port_api():
-    from honeybadgermpc_tpu_torch.models import (butterfly, fixedpoint, mimc,
+    from honeybadgermpc_tpu_torch import elliptic_curve
+    from honeybadgermpc_tpu_torch.models import (butterfly, fixedpoint,
+                                                 jubjub, mimc,
+                                                 mimc_jubjub_pkc,
                                                  mimc_symmetric, powermixing)
-    from honeybadgermpc_tpu_torch.runtime import (comparison, context,
+    from honeybadgermpc_tpu_torch.runtime import (comparison, context, fused,
                                                   refinement)
+
+    def raw(w):
+        return torch.from_numpy(
+            np.ascontiguousarray(w, np.uint32).view(np.int32))
+
     return types.SimpleNamespace(
         context=context, comparison=comparison, mimc=mimc,
         mimc_symmetric=mimc_symmetric, butterfly=butterfly,
         refinement=refinement, fixedpoint=fixedpoint,
-        powermixing=powermixing,
+        powermixing=powermixing, fused=fused, jubjub=jubjub,
+        pkc=mimc_jubjub_pkc, curve=elliptic_curve, FpArray=FpArray, raw=raw,
         fp=lambda w: FpArray(interop.from_reference_limbs(
             np.asarray(w, np.uint32), "cpu")))
 
@@ -156,10 +170,11 @@ def _bind(api, ctx):
     return api
 
 
-def ref_run(n, t, deal, program):
+def ref_run(n, t, deal, program, robust=True):
     """Run `program` on the JAX package: `deal(pre)` fills the reference
-    dealer (seeded), then the context runs the program. Returns the words
-    of every output (``out_<name>``) and of the consumed part of every pool
+    dealer (seeded), then the context (robust opens unless `robust` is
+    False) runs the program. Returns the words of every output
+    (``out_<name>``) and of the consumed part of every pool
     (``pool_<kind>``)."""
     from honeybadgermpc_tpu.runtime.context import MpcContext
     from honeybadgermpc_tpu.runtime.preprocessing import PreProcessedElements
@@ -167,7 +182,7 @@ def ref_run(n, t, deal, program):
     deal(pre)
     dealt = {kind: np.asarray(pool.data.limbs)
              for kind, pool in pre._pools.items()}
-    ctx = MpcContext(n, t, preproc=pre)
+    ctx = MpcContext(n, t, preproc=pre, robust=robust)
     outs = _flatten(program(ctx, _bind(ref_api(), ctx)))
     res = {f"out_{k}": v for k, v in outs.items()}
     for kind, arr in dealt.items():
@@ -185,7 +200,7 @@ def write_pools(ref, n, t, path):
             np.save(os.path.join(path, f"{key[5:]}_{n}_{t}.npy"), arr)
 
 
-def port_run(ref, n, t, program, path):
+def port_run(ref, n, t, program, path, robust=True):
     """Run `program` on the port (CPU) with the reference's pools loaded
     through ``PreProcessedElements.load``; assert that its outputs are
     word-equal to the reference's and that every pool is used up. Returns
@@ -196,7 +211,7 @@ def port_run(ref, n, t, program, path):
     write_pools(ref, n, t, path)
     pre = PreProcessedElements(n, t, seed=0, device="cpu")
     pre.load(str(path))
-    ctx = MpcContext(n, t, preproc=pre, device="cpu")
+    ctx = MpcContext(n, t, preproc=pre, device="cpu", robust=robust)
     outs = _flatten(program(ctx, _bind(port_api(), ctx)))
     want = {k[4:]: v for k, v in ref.items() if k.startswith("out_")}
     assert sorted(outs) == sorted(want)
